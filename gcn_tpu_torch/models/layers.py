@@ -1,0 +1,72 @@
+"""Graph convolution layer primitives (functional).
+
+Numerics of the pygcn reference's ``GraphConvolution`` (gcn1.py:14-62), as
+in ``gcn_tpu.models.layers``: weights (in, out), W and b drawn from
+U(-1/sqrt(out), 1/sqrt(out)), output ``A (X W) + b``; the order ``(A X) W``
+is the reference's ``GraphConvolution2`` (gcn3.py:87-92).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def init_linear(generator: torch.Generator, n_in: int, n_out: int,
+                with_bias: bool = True, dtype=torch.float32,
+                device="cpu") -> Dict[str, torch.Tensor]:
+    """U(-1/sqrt(out), 1/sqrt(out)) weights drawn from ``generator`` (on the
+    CPU, so every device gets the same numbers), then moved to
+    ``device``."""
+    stdv = 1.0 / (n_out ** 0.5)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, dtype=dtype)
+        return ((2.0 * u - 1.0) * stdv).to(device)
+
+    params = {"w": uniform((n_in, n_out))}
+    if with_bias:
+        params["b"] = uniform((n_out,))
+    return params
+
+
+def graph_conv(params: Dict[str, torch.Tensor], adj, x: torch.Tensor,
+               order: str = "a_xw") -> torch.Tensor:
+    """One graph convolution.
+
+    order:
+      "a_xw" — A @ (X @ W): SpMM at width n_out.
+      "ax_w" — (A @ X) @ W: SpMM at width n_in.
+      "xw"   — X @ W only: the aggregation was hoisted upstream.
+    """
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    w = params["w"]
+    if order == "a_xw":
+        h = spmm(adj, torch.matmul(x, w))
+    elif order == "ax_w":
+        h = torch.matmul(spmm(adj, x), w)
+    elif order == "xw":
+        h = torch.matmul(x, w)
+    else:
+        raise ValueError(f"unknown contraction order {order!r}")
+    if "b" in params:
+        h = h + params["b"]
+    return h
+
+
+def auto_order(n_in: int, n_out: int) -> str:
+    """The contraction order that runs the SpMM at the narrower width."""
+    return "a_xw" if n_out <= n_in else "ax_w"
+
+
+def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout; the mask is drawn from ``generator`` (which lives
+    on x's device)."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -1,0 +1,135 @@
+"""Device-side adjacency representations.
+
+The host currency is ``gcn_tpu_torch.graph.CSRGraph`` (numpy). Before
+training it is lowered onto a device as one of:
+
+  * ``DenseAdj`` — a dense matrix; SpMM is ``torch.matmul``.
+  * ``CooAdj``   — row-sorted COO padded to EDGE_PAD; SpMM is a gather and
+    ``index_add_`` (plain torch: in ``gcn_tpu`` this path is XLA, not a
+    Pallas kernel).
+  * ``EllAdj``   — the packed ELL layout of ``gcn_tpu_torch.tile.ell``,
+    whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gcn_tpu_torch.graph.csr import CSRGraph
+
+# Pad edge counts to a multiple of this, as gcn_tpu does.
+EDGE_PAD = 1024
+
+
+def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
+    if x.shape[0] == size:
+        return x
+    out = np.full((size,), fill, dtype=x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CooAdj:
+    """Row-sorted COO adjacency, padded to EDGE_PAD with ``vals == 0`` and
+    in-range indices (last row / column 0). ``t_*`` hold the transpose,
+    aliased when symmetric."""
+
+    rows: torch.Tensor  # int64[E_pad]
+    cols: torch.Tensor  # int64[E_pad]
+    vals: torch.Tensor  # float32[E_pad]
+    t_rows: torch.Tensor
+    t_cols: torch.Tensor
+    t_vals: torch.Tensor
+    n_rows: int
+    n_cols: int
+    nnz: int
+    symmetric: bool
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseAdj:
+    """Dense adjacency (small graphs); SpMM is a plain matmul."""
+
+    mat: torch.Tensor
+    nnz: int
+
+    @property
+    def n_rows(self):
+        return self.mat.shape[0]
+
+    @property
+    def n_cols(self):
+        return self.mat.shape[1]
+
+    @property
+    def shape(self):
+        return tuple(self.mat.shape)
+
+
+def _coo_arrays(g: CSRGraph, pad_to: Optional[int] = None):
+    rows, cols, vals = g.to_coo()  # row-major, cols ascending
+    e = rows.shape[0]
+    e_pad = pad_to if pad_to is not None else max(
+        EDGE_PAD, -(-e // EDGE_PAD) * EDGE_PAD)
+    pad_row = max(g.shape[0] - 1, 0)
+    rows = _pad_to(rows.astype(np.int64), e_pad, pad_row)
+    cols = _pad_to(cols.astype(np.int64), e_pad, 0)
+    vals = _pad_to(vals.astype(np.float32), e_pad, 0.0)
+    return rows, cols, vals, e
+
+
+def coo_adjacency(g: CSRGraph, *, symmetric: Optional[bool] = None,
+                  device="cpu") -> CooAdj:
+    if symmetric is None:
+        symmetric = g.shape[0] == g.shape[1] and g.is_symmetric()
+    rows, cols, vals, e = _coo_arrays(g)
+    rows, cols, vals = (torch.from_numpy(a).to(device)
+                        for a in (rows, cols, vals))
+    if symmetric:
+        t_rows, t_cols, t_vals = rows, cols, vals
+    else:
+        tr, tc, tv, _ = _coo_arrays(g.transpose(), pad_to=rows.shape[0])
+        t_rows, t_cols, t_vals = (torch.from_numpy(a).to(device)
+                                  for a in (tr, tc, tv))
+    return CooAdj(rows=rows, cols=cols, vals=vals, t_rows=t_rows,
+                  t_cols=t_cols, t_vals=t_vals, n_rows=g.shape[0],
+                  n_cols=g.shape[1], nnz=e, symmetric=bool(symmetric))
+
+
+def dense_adjacency(g: CSRGraph, device="cpu") -> DenseAdj:
+    return DenseAdj(mat=torch.from_numpy(g.to_dense()).to(device),
+                    nnz=g.nnz)
+
+
+def device_adjacency(g: CSRGraph, kind: str = "auto", device="cpu",
+                     **kwargs):
+    """Lower a host CSRGraph to a device representation on ``device``.
+
+    kind: "dense" | "coo" | "ell" | "auto" ("auto" picks dense up to an
+    8192x8192-equivalent area, coo beyond it, as gcn_tpu does).
+    """
+    if kind == "auto":
+        kind = "dense" if g.shape[0] * g.shape[1] <= 8192 ** 2 else "coo"
+    if kwargs.get("freq_split"):
+        raise NotImplementedError(
+            "freq_split (the frequency-split ELL tables) is not ported yet; "
+            "see ROADMAP.md")
+    kwargs.pop("freq_split", None)
+    if kind == "dense":
+        return dense_adjacency(g, device=device)
+    if kind == "coo":
+        return coo_adjacency(g, device=device, **kwargs)
+    if kind == "ell":
+        from gcn_tpu_torch.tile.ell import ell_adjacency
+
+        return ell_adjacency(g, device=device, **kwargs)
+    raise ValueError(f"unknown adjacency kind: {kind!r}")

@@ -1,0 +1,75 @@
+"""SpMM: sparse normalized adjacency x dense features.
+
+One differentiable entry point, ``spmm(adj, x)``, for every representation:
+
+  * ``DenseAdj`` — ``torch.matmul``;
+  * ``CooAdj``   — gather + ``index_add_`` (``_SpmmCoo``), with the SDDMM
+    edge-weight cotangent dvals[e] = <g[row_e], x[col_e]>;
+  * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``).
+
+dX = A^T @ g always comes from the stored transpose arrays.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj
+
+
+def _segment_spmm(rows, cols, vals, x, m):
+    """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]]."""
+    out = x.new_zeros((m, x.shape[1]))
+    return out.index_add_(0, rows, x[cols] * vals.unsqueeze(1).to(x.dtype))
+
+
+class _SpmmCoo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, vals, adj):
+        ctx.adj = adj
+        ctx.save_for_backward(x)
+        return _segment_spmm(adj.rows, adj.cols, vals, x, adj.n_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        adj = ctx.adj
+        (x,) = ctx.saved_tensors
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            dx = _segment_spmm(adj.t_rows, adj.t_cols, adj.t_vals, g,
+                               adj.n_cols).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dvals = (g[adj.rows] * x[adj.cols]).sum(dim=-1).to(
+                adj.vals.dtype)
+        return dx, dvals, None
+
+
+def spmm(adj, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable sparse @ dense: returns ``A @ X`` of shape (m, k)."""
+    shape = getattr(adj, "shape", None)
+    if shape is not None and x.dim() == 2 and x.shape[0] != shape[1]:
+        raise ValueError(
+            f"spmm shape mismatch: adjacency is {shape}, features have "
+            f"{x.shape[0]} rows (expected {shape[1]})")
+    if isinstance(adj, DenseAdj):
+        return torch.matmul(adj.mat, x)
+    if isinstance(adj, CooAdj):
+        return _SpmmCoo.apply(x, adj.vals, adj)
+    from gcn_tpu_torch.tile.ell import EllAdj
+
+    if isinstance(adj, EllAdj):
+        from gcn_tpu_torch.ops.ell_spmm import spmm_ell
+
+        return spmm_ell(adj, x)
+    raise TypeError(f"unsupported adjacency representation: {type(adj)}")
+
+
+def hoist_spmm(adj, x: torch.Tensor, chunk: int = None) -> torch.Tensor:
+    """Aggregate ``A @ x`` once, in column chunks of ``chunk`` (the
+    adjacency's k_pad by default): the training-invariant layer-1 A@X."""
+    if chunk is None:
+        chunk = getattr(adj, "k_pad", 32)
+    with torch.no_grad():
+        parts = [spmm(adj, x[:, c:c + chunk].contiguous())
+                 for c in range(0, x.shape[1], chunk)]
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]

@@ -1,0 +1,36 @@
+"""gcn_tpu_torch imports and trains with jax and gcn_tpu blocked."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["gcn_tpu"] = None
+import gcn_tpu_torch
+from gcn_tpu_torch.data import get_dataset
+from gcn_tpu_torch.models import GCN
+import gcn_tpu_torch.train_gcn, gcn_tpu_torch.convert
+import gcn_tpu_torch.utils.checkpoint, gcn_tpu_torch.ops.ell_spmm
+data = get_dataset("synth-tiny", seed=0)
+m = GCN(data.num_features, 8, data.num_classes, variant="v6", device="cpu")
+m.fit(data.features, data.adj, data.labels, data.idx_train, train_iters=3)
+assert len(m.history) == 3
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
+                and sys.modules[k] is not None)
+assert not leaked, leaked
+m.test(data.idx_test)
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Test set results: loss= " in proc.stdout
