@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py          # from the repository root; needs a GPU
 
-Drives the port's main path on the card — v6 GCN training on synth-arxiv
-at its full width (n=169,343, 128 features, hidden 32, 40 classes) through
-``gcn_tpu_torch.models.GCN`` — and holds every kernel of that path against
-its plain PyTorch version. Phases (each failure exits non-zero):
+Drives the port's two paths on the card at synth-arxiv's full width
+(n=169,343, 128 features, hidden 32, 40 classes) — v6 GCN training through
+``gcn_tpu_torch.models.GCN`` over the ELL layout (kernel K1), and
+functional GCN training over the panel layout (``panel_adjacency``,
+``hoist_spmm``, ``gcn_forward``, ``fit_gcn``; kernel K2) — and holds every
+kernel against its plain PyTorch version. Phases (each failure exits
+non-zero):
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the repository's sources (nvcc, one process per
@@ -15,17 +18,36 @@ its plain PyTorch version. Phases (each failure exits non-zero):
      path's shapes: synth-arxiv forward at k=32, the layer-1 hoist at
      k=128 (4 column tiles), the backward on the transpose arrays, and a
      non-symmetric rectangular matrix forward and backward; tolerance f32
-     rtol 1e-5 and atol 1e-6 * max|out| (sums are reassociated);
-  4. K1's time (CUDA events, median of 30 chained calls), the plain
-     version's, ``torch.sparse.mm`` on the same CSR as the library
-     yardstick, and the bound reckoned from this run's inputs;
-  5. a 5-step v6 fit (dropout 0) on the card and on the CPU from the same
-     parameters: per-step losses agree at rtol 1e-4;
-  6. the main path: a default 20-step v6 fit on the card (dropout 0.5,
+     rtol 1e-5 and atol 1e-6 * max|out| (sums are reassociated). K1's
+     bf16 variants at synth-arxiv forward k=32 and on the rectangular
+     matrix's transpose arrays: table_bf16 at the f32 tolerance (the same
+     bf16 inputs, f32 sums), products_bf16 at rtol and atol 2e-2 (a bf16
+     ulp can flip when f32 sums are taken in another order), and
+     products_bf16 really rounds: >= 99% of its elements equal the plain
+     version at the f32 tolerance and >= 50% differ from f32 K1 by more;
+  4. K1's time (CUDA events, median of 30 chained calls), its bf16
+     variants', the plain versions', ``torch.sparse.mm`` on the same CSR as
+     the library yardstick, and the bound reckoned from this run's inputs;
+  5. K2 (the panel SpMM) against its plain version, at the f32 tolerance:
+     synth-arxiv forward at k=32 and k=128, the layer-1 hoist at k=128 (4
+     chunks), the rectangular matrix forward and its transpose arrays, a
+     graph with edgeless windows, autograd dX card against CPU; then K2
+     against K1 + hub epilogue on the same graph and x (the cross-check K2
+     exists for), and K2's timing beside its bound;
+  6. a 5-step v6 fit (dropout 0) on the card and on the CPU from the same
+     parameters: per-step losses agree at rtol 1e-4; the same 5 steps with
+     each bf16 option agree with the card's f32 losses at 2e-2 and count
+     their K1 launches;
+  7. the main path: a default 20-step v6 fit on the card (dropout 0.5,
      seed 15) with K1's launch count read around it; the loss falls, the
      output is finite, of shape (n, 40) and normalized, and K1 ran 4 (hoist)
      + 2 per step + 1 (eval) times;
-  7. where a step's time goes: 10 more steps under torch.profiler.
+  8. the panel path: 5 steps (dropout 0) from phase 6's parameters, whose
+     losses agree with the ELL path's at rtol 1e-4; then 20 steps (dropout
+     0.5, seed 15) with K1's and K2's launch counts read around it: the
+     loss falls, the output is finite and normalized, K2 ran 4 (hoist) + 2
+     per step + 1 (eval) times and K1 none;
+  9. where a v6 step's time goes: 10 more steps under torch.profiler.
 
 Then one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi
 line again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -44,6 +66,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 RTOL = 1e-5
 ATOL_OF_MAX = 1e-6
+BF16_TOL = 2e-2
 SEED = 15
 
 
@@ -60,8 +83,10 @@ def smi_line():
     return out[0] if out else fail("nvidia-smi printed nothing")
 
 
-def compare(name, got, want):
-    """Max errors of ``got`` against ``want``; fails past the tolerance."""
+def compare(name, got, want, rtol=RTOL, atol=None):
+    """Max errors of ``got`` against ``want``; fails past the tolerance
+    (rtol * |want| + atol, where atol is ATOL_OF_MAX * max|want| unless it
+    is given)."""
     import torch
 
     got, want = got.float(), want.float()
@@ -71,7 +96,8 @@ def compare(name, got, want):
         fail(f"{name}: kernel output is not finite")
     scale = want.abs().max().item()
     diff = (got - want).abs()
-    limit = RTOL * want.abs() + ATOL_OF_MAX * scale
+    limit = rtol * want.abs() + (ATOL_OF_MAX * scale if atol is None
+                                 else atol)
     max_abs = diff.max().item()
     max_rel = (diff / want.abs().clamp_min(ATOL_OF_MAX * scale)).max().item()
     ok = bool((diff <= limit).all())
@@ -81,6 +107,28 @@ def compare(name, got, want):
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def share_within(got, want):
+    """Share of the elements of ``got`` within the f32 tolerance of
+    ``want``."""
+    limit = RTOL * want.abs() + ATOL_OF_MAX * want.abs().max()
+    return ((got - want).abs() <= limit).float().mean().item()
+
+
+def check_rounds(name, got, want, unrounded):
+    """products_bf16 must really round each pass-block's sum: nearly every
+    element equals the plain rounded version at the f32 tolerance (only a
+    bf16 ulp flipped by another order of f32 sums differs), and most differ
+    from K1's f32 result by more than that tolerance."""
+    same = share_within(got, want)
+    moved = 1.0 - share_within(got, unrounded)
+    ok = same >= 0.99 and moved >= 0.5
+    print(f"  {name}: {100 * same:.3f}% equal the plain rounded version at "
+          f"f32 tolerance (>= 99%), {100 * moved:.3f}% differ from f32 K1 "
+          f"(>= 50%) -> {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name}: K1 does not round each pass-block's sum to bf16")
 
 
 def time_chain(fn, x, n_out_rows, reps):
@@ -170,6 +218,59 @@ def profile_steps(model, idx_train, steps):
         print(f"  {ms / steps:8.4f} ms/step  {name[:90]}")
 
 
+def k1_bound(adj, n_in, k):
+    """K1's least time at this run's inputs: cols + vals + win_off, x read
+    once, out written once, over the HBM rate; 2 flop a stored edge and
+    column over the f32 peak. Returns (ms, "bytes" | "operations")."""
+    bytes_moved = (adj.cols.numel() * 4 + adj.vals.numel() * 4
+                   + adj.win_off.numel() * 4 + n_in * k * 4
+                   + adj.row_space * k * 4)
+    return bound(bytes_moved, 2 * adj.nnz * k)
+
+
+def k2_bound(padj, n_in, k):
+    """K2's least time at this run's inputs: cols + vals + local_row (12 B a
+    slot) + win_off, x read once, out written once; 2 flop a stored edge and
+    column."""
+    bytes_moved = (padj.cols.numel() * 12 + padj.win_off.numel() * 4
+                   + n_in * k * 4 + padj.n_rows * k * 4)
+    return bound(bytes_moved, 2 * padj.nnz * k)
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    print(f"  bound {max(t_bytes, t_ops) * 1e3:.2f} us "
+          f"({bytes_moved / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e6:.1f} "
+          f"Mflop at 67 TFLOP/s f32)", flush=True)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def panel_fit(params, feats, padj, labels, idx, steps, dropout, device):
+    """The panel path through the port's functional API: layer-1 A@X
+    hoisted (``feats``, computed by the caller with ``hoist_spmm``), then
+    ``fit_gcn`` with ``adam_l2`` over ``gcn_forward`` on the PanelAdj."""
+    import torch
+
+    from gcn_tpu_torch.models.gcn_core import gcn_forward
+    from gcn_tpu_torch.models.layers import auto_order
+    from gcn_tpu_torch.train.loop import fit_gcn
+    from gcn_tpu_torch.train.optim import adam_l2
+    from gcn_tpu_torch.utils.timers import Timers
+
+    nhid, ncls = params["gc2"]["w"].shape
+    orders = ("xw", auto_order(nhid, ncls))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def forward(p, train):
+        return gcn_forward(p, feats, padj, orders=orders,
+                           dropout_rate=dropout, train=train, generator=gen)
+
+    return fit_gcn(params, adam_l2, forward, labels, idx, train_iters=steps,
+                   timers=Timers(device))
+
+
 def main():
     import torch
 
@@ -186,8 +287,10 @@ def main():
     from gcn_tpu_torch.models import GCN
     from gcn_tpu_torch.ops import _build
     from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops import panel_spmm as ps
     from gcn_tpu_torch.ops.spmm import hoist_spmm
     from gcn_tpu_torch.reorder import native, reorder_graph
+    from gcn_tpu_torch.tile import panel_adjacency
     from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,18 +337,22 @@ def main():
           f"pad={adj.pad_fraction:.3f} ({time.time() - t0:.1f}s)",
           flush=True)
 
-    def k1(a, x, t=False):
+    def k1(a, x, t=False, **opts):
         if t:
             return es.ell_spmm(x, a.t_cols, a.t_vals, a.t_win, a.t_win_off,
-                               a.t_row_space)
-        return es.ell_spmm(x, a.cols, a.vals, a.win, a.win_off, a.row_space)
+                               a.t_row_space, **opts)
+        return es.ell_spmm(x, a.cols, a.vals, a.win, a.win_off, a.row_space,
+                           **opts)
 
-    def plain(a, x, t=False):
+    def plain(a, x, t=False, table_bf16=False, products_bf16=False):
+        if table_bf16:
+            x = x.to(torch.bfloat16).float()
         if t:
             return es._ell_spmm_plain(x, a.t_cols, a.t_vals, a.t_win,
-                                      a.t_win_off, a.t_row_space)
+                                      a.t_win_off, a.t_row_space,
+                                      products_bf16)
         return es._ell_spmm_plain(x, a.cols, a.vals, a.win, a.win_off,
-                                  a.row_space)
+                                  a.row_space, products_bf16)
 
     print("[K1 vs plain]", flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -287,7 +394,21 @@ def main():
     torch.cuda.synchronize()
     max_abs_err = max(errs)
 
-    # ---- 4. timing at the main path's shape ------------------------------
+    print("[K1 bf16 vs plain]", flush=True)
+    bf16_err = {"table_bf16": 0.0, "products_bf16": 0.0}
+    for label, a, x, t in (("arxiv fwd k=32", adj, x32, False),
+                           ("rect bwd (transpose arrays)", radj, gr, True)):
+        o = {"table_bf16": True}
+        bf16_err["table_bf16"] = max(bf16_err["table_bf16"], compare(
+            f"table_bf16 {label}", k1(a, x, t, **o), plain(a, x, t, **o)))
+        o = {"products_bf16": True}
+        got, want = k1(a, x, t, **o), plain(a, x, t, **o)
+        bf16_err["products_bf16"] = max(bf16_err["products_bf16"], compare(
+            f"products_bf16 {label}", got, want, BF16_TOL, atol=BF16_TOL))
+        check_rounds(f"products_bf16 {label}", got, want, k1(a, x, t))
+    torch.cuda.synchronize()
+
+    # ---- 4. K1 timing at the main path's shape ---------------------------
     print("[K1 timing] synth-arxiv forward, k=32", flush=True)
     k1_ms = time_chain(lambda x: k1(adj, x), x32, n, 30)
     plain_ms = time_chain(lambda x: plain(adj, x), x32, n, 5)
@@ -299,45 +420,132 @@ def main():
     lib_diff = (es._hub_epilogue(k1(adj, x32), adj.virt_map, adj.n_hub, n)
                 - torch.sparse.mm(csr, x32)).abs().max().item()
     print(f"  torch.sparse.mm vs K1 + epilogue: max abs diff {lib_diff:.3e}")
-    k = 32
-    bytes_moved = (adj.cols.numel() * 4 + adj.vals.numel() * 4
-                   + adj.win_off.numel() * 4 + n * k * 4
-                   + adj.row_space * k * 4)
-    flops = 2 * g.nnz * k
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bf16_ms = {}
+    for option in ("table_bf16", "products_bf16"):
+        o = {option: True}
+        bf16_ms[option] = (
+            time_chain(lambda x: k1(adj, x, **o), x32, n, 30),
+            time_chain(lambda x: plain(adj, x, **o), x32, n, 5))
     print(f"  K1 {k1_ms:.4f} ms | plain {plain_ms:.4f} ms | "
           f"torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
-    print(f"  bound {bound_ms * 1e3:.2f} us by {bound_by} "
-          f"({bytes_moved / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e6:.1f} "
-          f"Mflop at 67 TFLOP/s f32) -> K1 at "
-          f"{100 * bound_ms / k1_ms:.1f}% of bound", flush=True)
+    for option, (ms, pms) in bf16_ms.items():
+        note = " (the cast of x included)" if option == "table_bf16" else ""
+        print(f"  K1 {option} {ms:.4f} ms{note} | plain {pms:.4f} ms",
+              flush=True)
+    bound_ms, bound_by = k1_bound(adj, n, 32)
+    print(f"  K1 at {100 * bound_ms / k1_ms:.1f}% of the bound "
+          f"(by {bound_by})", flush=True)
 
-    # ---- 5. 5-step fit, card against CPU, same parameters ----------------
+    # ---- 5. K2 against its plain version, against K1, and its time -------
+    t0 = time.time()
+    padj = panel_adjacency(g, symmetric=True, device=dev)
+    print(f"[panel] synth-arxiv windows={padj.win_off.numel() - 1} "
+          f"blocks={padj.num_blocks} slots={padj.cols.numel()} "
+          f"pad={padj.pad_fraction:.3f} max blocks/window="
+          f"{int(padj.win_off.diff().max())} ({time.time() - t0:.1f}s)",
+          flush=True)
+
+    def k2(a, x, t=False):
+        if t:
+            return ps.panel_spmm(x, a.t_cols, a.t_vals, a.t_local_row,
+                                 a.t_row_base, a.t_win_off, a.r, a.n_cols)
+        return ps.panel_spmm(x, a.cols, a.vals, a.local_row, a.row_base,
+                             a.win_off, a.r, a.n_rows)
+
+    def plain2(a, x, t=False):
+        if t:
+            return ps._panel_spmm_plain(x, a.t_cols, a.t_vals, a.t_local_row,
+                                        a.t_row_base, a.r, a.n_cols)
+        return ps._panel_spmm_plain(x, a.cols, a.vals, a.local_row,
+                                    a.row_base, a.r, a.n_rows)
+
+    print("[K2 vs plain]", flush=True)
+    errs2 = [compare("arxiv fwd k=32", k2(padj, x32), plain2(padj, x32)),
+             compare("arxiv fwd k=128", k2(padj, feats),
+                     plain2(padj, feats)),
+             compare("arxiv hoist k=128 (4 chunks)", hoist_spmm(padj, feats),
+                     plain2(padj, feats))]
+    rpadj = panel_adjacency(rg, device=dev)
+    if rpadj.symmetric or int(rpadj.win_off[:2].diff()) < 2:
+        fail("rectangular panel graph lost its asymmetry or multi-block "
+             "window")
+    errs2.append(compare("rect fwd k=32", k2(rpadj, xr), plain2(rpadj, xr)))
+    errs2.append(compare("rect transpose arrays", k2(rpadj, gr, True),
+                         plain2(rpadj, gr, True)))
+    ne = 50_000
+    src = np.concatenate([rng.integers(0, 10_000, 150_000),
+                          rng.integers(10_500, ne, 600_000)])
+    eg = coo_to_csr(src, rng.integers(0, ne, src.shape[0]),
+                    rng.random(src.shape[0]), (ne, ne))
+    epadj = panel_adjacency(eg, device=dev)
+    lr = epadj.local_row.cpu().numpy()
+    off = epadj.win_off.cpu().numpy()
+    if all((lr[off[w]:off[w + 1]] < epadj.r).any()
+           for w in range(off.shape[0] - 1)):
+        fail("edgeless-window graph has no window of zeros")
+    xe = torch.randn(ne, 32, device=dev, generator=gen)
+    errs2.append(compare("edgeless windows fwd k=32", k2(epadj, xe),
+                         plain2(epadj, xe)))
+    xg = xr.clone().requires_grad_(True)
+    ps.spmm_panel(rpadj, xg).backward(gr)
+    xc = xr.cpu().requires_grad_(True)
+    ps.spmm_panel(rpadj.to("cpu"), xc).backward(gr.cpu())
+    errs2.append(compare("rect autograd dX, card vs cpu", xg.grad.cpu(),
+                         xc.grad))
+    print("[K2 vs K1] synth-arxiv, same graph and x", flush=True)
+    errs2.append(compare("K2 vs K1 + hub epilogue, k=32", k2(padj, x32),
+                         es._hub_epilogue(k1(adj, x32), adj.virt_map,
+                                          adj.n_hub, n)))
+    torch.cuda.synchronize()
+    max_abs_err2 = max(errs2)
+    print("[K2 timing] synth-arxiv forward, k=32", flush=True)
+    k2_ms = time_chain(lambda x: k2(padj, x), x32, n, 30)
+    plain2_ms = time_chain(lambda x: plain2(padj, x), x32, n, 5)
+    print(f"  K2 {k2_ms:.4f} ms | plain {plain2_ms:.4f} ms | "
+          f"torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
+    bound2_ms, bound2_by = k2_bound(padj, n, 32)
+    print(f"  K2 at {100 * bound2_ms / k2_ms:.1f}% of the bound "
+          f"(by {bound2_by})", flush=True)
+
+    # ---- 6. 5-step fit, card against CPU, same parameters ----------------
     print("[fit 5 steps, dropout 0] card vs cpu", flush=True)
     nfeat, nhid, ncls = data.num_features, 32, data.num_classes
     p0 = params_to_numpy(GCN(nfeat, nhid, ncls, seed=SEED,
                              device="cpu").init_params())
     hist = {}
-    for device in ("cuda", "cpu"):
+    bf16_launches = {}
+    runs = (("cuda", {}), ("cpu", {}), ("table_bf16", {"table_bf16": True}),
+            ("products_bf16", {"products_bf16": True}))
+    for name, opts in runs:
+        device = "cpu" if name == "cpu" else "cuda"
         t0 = time.time()
         m = GCN(nfeat, nhid, ncls, dropout=0.0, variant="v6", seed=SEED,
-                device=device)
+                adj_options=opts, device=device)
         m.params = params_from_numpy(p0, device)
+        es.spmm_ell_launches = 0
         m.fit(data.features, data.adj, data.labels, data.idx_train,
               train_iters=5, initialize=False)
-        hist[device] = [h["loss_train"] for h in m.history]
-        print(f"  {device}: losses {hist[device]} "
-              f"({time.time() - t0:.1f}s)", flush=True)
+        bf16_launches[name] = es.spmm_ell_launches
+        hist[name] = [h["loss_train"] for h in m.history]
+        print(f"  {name}: losses {hist[name]} ({bf16_launches[name]} K1 "
+              f"launches, {time.time() - t0:.1f}s)", flush=True)
     lc, lp = np.array(hist["cuda"]), np.array(hist["cpu"])
     if not np.allclose(lc, lp, rtol=1e-4, atol=0):
         fail(f"card and cpu losses disagree: {lc} vs {lp}")
     print(f"  max rel diff {np.max(np.abs(lc - lp) / np.abs(lp)):.2e} "
           f"(rtol 1e-4) ok", flush=True)
+    for option in ("table_bf16", "products_bf16"):
+        lb = np.array(hist[option])
+        if not np.allclose(lb, lc, rtol=BF16_TOL, atol=0):
+            fail(f"{option} losses disagree with f32: {lb} vs {lc}")
+        if bf16_launches[option] != 4 + 2 * 5 + 1:
+            fail(f"{option}: {bf16_launches[option]} K1 launches, "
+                 f"expected 15")
+        print(f"  {option} vs f32 on the card: max rel diff "
+              f"{np.max(np.abs(lb - lc) / np.abs(lc)):.2e} (rtol "
+              f"{BF16_TOL}) ok", flush=True)
 
-    # ---- 6. the main path ------------------------------------------------
+    # ---- 7. the main path ------------------------------------------------
     steps = 20
     print(f"[main path] GCN v6 fit, {steps} steps, hidden {nhid}, "
           f"dropout 0.5, seed {SEED}", flush=True)
@@ -372,6 +580,56 @@ def main():
     norm = torch.logsumexp(out, dim=1).abs().max().item()
     if norm > 1e-4:
         fail(f"log-probs are not normalized (max |logsumexp| {norm:.2e})")
+
+    # ---- 8. the panel path -----------------------------------------------
+    print("[panel path] functional fit over PanelAdj, same reordered graph",
+          flush=True)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n)
+    labels = torch.as_tensor(data.labels[perm], device=dev)
+    idx_train = torch.as_tensor(inv[np.asarray(data.idx_train)], device=dev)
+    es.spmm_ell_launches = ps.spmm_panel_launches = 0
+    pfeats = hoist_spmm(padj, feats)
+    res = panel_fit(params_from_numpy(p0, dev), pfeats, padj, labels,
+                    idx_train, 5, 0.0, dev)
+    lpan = np.array([h["loss_train"] for h in res.history])
+    if not np.allclose(lpan, lc, rtol=1e-4, atol=0):
+        fail(f"panel and ELL path losses disagree: {lpan} vs {lc}")
+    print(f"  5 steps, dropout 0: losses {lpan.tolist()}; max rel diff to "
+          f"the ELL path {np.max(np.abs(lpan - lc) / np.abs(lc)):.2e} "
+          f"(rtol 1e-4) ok", flush=True)
+    init = GCN(nfeat, nhid, ncls, seed=SEED, device=dev).init_params()
+    t0 = time.time()
+    es.spmm_ell_launches = ps.spmm_panel_launches = 0
+    pfeats = hoist_spmm(padj, feats)
+    res = panel_fit(init, pfeats, padj, labels, idx_train, steps, 0.5, dev)
+    torch.cuda.synchronize()
+    launches2, k1_in_panel = ps.spmm_panel_launches, es.spmm_ell_launches
+    plosses = [h["loss_train"] for h in res.history]
+    pout = res.log_probs
+    idx_test = torch.as_tensor(inv[np.asarray(data.idx_test)], device=dev)
+    pacc = (pout[idx_test].argmax(1) == labels[idx_test]).float().mean()
+    print(f"  {steps} steps, dropout 0.5, seed {SEED}: losses first "
+          f"{plosses[0]:.6f} last {plosses[-1]:.6f}; fit "
+          f"{time.time() - t0:.2f}s; median step "
+          f"{res.timers('step').d.median_ms:.3f} ms (last "
+          f"{res.timers('step').d.count} steps); test accuracy "
+          f"{pacc.item():.4f}", flush=True)
+    print(f"  K2 launches on the panel path: {launches2} (expected "
+          f"{expected} = 4 hoist + 2 x {steps} steps + 1 eval); K1 "
+          f"launches: {k1_in_panel}", flush=True)
+    if launches2 != expected or k1_in_panel != 0:
+        fail(f"panel path: K2 launched {launches2} times (expected "
+             f"{expected}), K1 {k1_in_panel} times (expected 0)")
+    if not plosses[-1] < plosses[0]:
+        fail(f"panel path loss did not fall: {plosses[0]} -> {plosses[-1]}")
+    if tuple(pout.shape) != (n, ncls) or not torch.isfinite(pout).all():
+        fail(f"panel output shape {tuple(pout.shape)} or values not finite")
+    pnorm = torch.logsumexp(pout, dim=1).abs().max().item()
+    if pnorm > 1e-4:
+        fail(f"panel log-probs are not normalized ({pnorm:.2e})")
+
+    # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 
@@ -386,6 +644,26 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": lib_ms,
+        "table_bf16_ms": bf16_ms["table_bf16"][0],
+        "table_bf16_plain_ms": bf16_ms["table_bf16"][1],
+        "table_bf16_max_abs_err": bf16_err["table_bf16"],
+        "table_bf16_launches": bf16_launches["table_bf16"],
+        "products_bf16_ms": bf16_ms["products_bf16"][0],
+        "products_bf16_plain_ms": bf16_ms["products_bf16"][1],
+        "products_bf16_max_abs_err": bf16_err["products_bf16"],
+        "products_bf16_launches": bf16_launches["products_bf16"],
+    }, {
+        "name": "panel_spmm",
+        "route": "cuda",
+        "source": "gcn_tpu_torch/ops/csrc/panel_spmm.cu",
+        "replaces": "gcn_tpu/ops/panel_spmm.py:66",
+        "launches": launches2,
+        "max_abs_err": max_abs_err2,
+        "ms": k2_ms,
+        "plain_ms": plain2_ms,
+        "bound_ms": bound2_ms,
+        "bound_by": bound2_by,
         "library_ms": lib_ms,
     }]}))
     print(smi_line())

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared"]
 
 # library name -> sources (relative to the package) of each CUDA library
-CUDA_LIBRARIES = {"gcnellspmm": ["ops/csrc/ell_spmm.cu"]}
+CUDA_LIBRARIES = {"gcnellspmm": ["ops/csrc/ell_spmm.cu"],
+                  "gcnpanelspmm": ["ops/csrc/panel_spmm.cu"]}
 
 
 class BuildError(RuntimeError):

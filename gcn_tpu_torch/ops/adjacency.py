@@ -9,6 +9,9 @@ training it is lowered onto a device as one of:
     Pallas kernel).
   * ``EllAdj``   — the packed ELL layout of ``gcn_tpu_torch.tile.ell``,
     whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``).
+
+The panel layout (``PanelAdj``, kernel K2) is built only by
+``gcn_tpu_torch.tile.panel_adjacency``, as in ``gcn_tpu``.
 """
 
 from __future__ import annotations
@@ -132,4 +135,9 @@ def device_adjacency(g: CSRGraph, kind: str = "auto", device="cpu",
         from gcn_tpu_torch.tile.ell import ell_adjacency
 
         return ell_adjacency(g, device=device, **kwargs)
+    if kind == "panel":
+        raise ValueError(
+            "'panel' is a test-side reference implementation only; use "
+            "'ell' (or build via gcn_tpu_torch.tile.panel_adjacency "
+            "directly)")
     raise ValueError(f"unknown adjacency kind: {kind!r}")

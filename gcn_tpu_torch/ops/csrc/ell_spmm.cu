@@ -35,14 +35,34 @@
 // come mostly from the 50 MB L2, which holds x. The work is ~2 flop per
 // edge and column, far below the f32 peak, so bytes bound it; in practice
 // the dependent col -> x load chain (latency) paces this simple version.
+//
+// The bf16 options of gcn_tpu's _spmm_ell_impl (ell_spmm.py:184-190) are
+// template parameters:
+//   * table_bf16: x arrives as bf16 (the wrapper casts it once per call),
+//     so every gathered row moves half the bytes; each element is widened
+//     with __bfloat162float and multiplied and summed in f32;
+//   * products_bf16: the sum over one pass-block's P slots (the TPU path's
+//     _gather_stride_sum output) is rounded to bf16 (__float2bfloat16_rn)
+//     and added into a separate f32 window accumulator.
+// The f32 variant keeps its flat slot loop, whose time is K1's reference;
+// the nested per-block loop of products_bf16 runs faster (PERF.md §7), and
+// merging the two loops is the first step of K1's redesign.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int CPT>
-__global__ void ell_spmm_kernel(const float* __restrict__ x,
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+template <int CPT, typename T, bool ROUND>
+__global__ void ell_spmm_kernel(const T* __restrict__ x,
                                 const int32_t* __restrict__ cols,
                                 const float* __restrict__ vals,
                                 const int32_t* __restrict__ win_off,
@@ -56,24 +76,48 @@ __global__ void ell_spmm_kernel(const float* __restrict__ x,
   const int32_t lane = (int32_t)(tid & (lanes - 1));
   const int64_t w = row / r;
   const int64_t i = row - w * r;
-  const int64_t s0 = (int64_t)win_off[w] * p;
-  const int64_t s1 = (int64_t)win_off[w + 1] * p;
+  const int64_t b0 = win_off[w];
+  const int64_t b1 = win_off[w + 1];
   const int32_t tile = lanes * CPT;
   float* out_row = out + row * k;
   for (int32_t c0 = 0; c0 < k; c0 += tile) {
     float acc[CPT];
 #pragma unroll
     for (int t = 0; t < CPT; ++t) acc[t] = 0.0f;
+    if (!ROUND) {
 #pragma unroll 4
-    for (int64_t s = s0; s < s1; ++s) {
-      const int64_t slot = s * r + i;
-      const int32_t c = __ldg(cols + slot);
-      const float v = __ldg(vals + slot);
-      const float* xr = x + (int64_t)c * k + c0 + lane;
+      for (int64_t s = b0 * p; s < b1 * p; ++s) {
+        const int64_t slot = s * r + i;
+        const int32_t c = __ldg(cols + slot);
+        const float v = __ldg(vals + slot);
+        const T* xr = x + (int64_t)c * k + c0 + lane;
 #pragma unroll
-      for (int t = 0; t < CPT; ++t) {
-        if (c0 + lane + t * lanes < k) {
-          acc[t] = fmaf(v, __ldg(xr + t * lanes), acc[t]);
+        for (int t = 0; t < CPT; ++t) {
+          if (c0 + lane + t * lanes < k) {
+            acc[t] = fmaf(v, load_f32(xr + t * lanes), acc[t]);
+          }
+        }
+      }
+    } else {
+      for (int64_t b = b0; b < b1; ++b) {
+        float blk[CPT];
+#pragma unroll
+        for (int t = 0; t < CPT; ++t) blk[t] = 0.0f;
+        for (int64_t s = b * p; s < (b + 1) * p; ++s) {
+          const int64_t slot = s * r + i;
+          const int32_t c = __ldg(cols + slot);
+          const float v = __ldg(vals + slot);
+          const T* xr = x + (int64_t)c * k + c0 + lane;
+#pragma unroll
+          for (int t = 0; t < CPT; ++t) {
+            if (c0 + lane + t * lanes < k) {
+              blk[t] = fmaf(v, load_f32(xr + t * lanes), blk[t]);
+            }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < CPT; ++t) {
+          acc[t] += __bfloat162float(__float2bfloat16_rn(blk[t]));
         }
       }
     }
@@ -85,36 +129,52 @@ __global__ void ell_spmm_kernel(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x: f32 (n_cols, k) row-major; cols/vals: (num_blocks, p, r);
-// win_off: int32 (num_windows + 1); out: f32 (n_out, k), n_out <=
-// num_windows * r. Launches on `stream`; returns cudaGetLastError().
-extern "C" int gcn_ell_spmm_f32(const float* x, const int32_t* cols,
-                                const float* vals, const int32_t* win_off,
-                                float* out, int32_t n_out, int32_t r,
-                                int32_t p, int32_t k, void* stream) {
-  if (n_out <= 0 || k <= 0) return (int)cudaGetLastError();
+template <typename T, bool ROUND>
+void launch(const T* x, const int32_t* cols, const float* vals,
+            const int32_t* win_off, float* out, int32_t n_out, int32_t r,
+            int32_t p, int32_t k, cudaStream_t s) {
   int32_t lanes_log2 = 0;
   while ((1 << lanes_log2) < k && lanes_log2 < 5) ++lanes_log2;
-  const int cpt = k <= 32 ? 1 : (k <= 64 ? 2 : 4);
   const int block = 256;
   const int64_t threads = (int64_t)n_out << lanes_log2;
   const unsigned grid = (unsigned)((threads + block - 1) / block);
+  if (k <= 32) {
+    ell_spmm_kernel<1, T, ROUND><<<grid, block, 0, s>>>(
+        x, cols, vals, win_off, out, n_out, r, p, k, lanes_log2);
+  } else if (k <= 64) {
+    ell_spmm_kernel<2, T, ROUND><<<grid, block, 0, s>>>(
+        x, cols, vals, win_off, out, n_out, r, p, k, lanes_log2);
+  } else {
+    ell_spmm_kernel<4, T, ROUND><<<grid, block, 0, s>>>(
+        x, cols, vals, win_off, out, n_out, r, p, k, lanes_log2);
+  }
+}
+
+}  // namespace
+
+// x: (n_cols, k) row-major, f32, or bf16 when x_bf16 is set; cols/vals:
+// (num_blocks, p, r); win_off: int32 (num_windows + 1); out: f32 (n_out, k),
+// n_out <= num_windows * r. products_bf16 rounds each pass-block's sum to
+// bf16. Launches on `stream`; returns cudaGetLastError().
+extern "C" int gcn_ell_spmm(const void* x, const int32_t* cols,
+                            const float* vals, const int32_t* win_off,
+                            float* out, int32_t n_out, int32_t r, int32_t p,
+                            int32_t k, int32_t x_bf16, int32_t products_bf16,
+                            void* stream) {
+  if (n_out <= 0 || k <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cpt) {
-    case 1:
-      ell_spmm_kernel<1><<<grid, block, 0, s>>>(x, cols, vals, win_off, out,
-                                                n_out, r, p, k, lanes_log2);
-      break;
-    case 2:
-      ell_spmm_kernel<2><<<grid, block, 0, s>>>(x, cols, vals, win_off, out,
-                                                n_out, r, p, k, lanes_log2);
-      break;
-    default:
-      ell_spmm_kernel<4><<<grid, block, 0, s>>>(x, cols, vals, win_off, out,
-                                                n_out, r, p, k, lanes_log2);
-      break;
+  const float* xf = static_cast<const float*>(x);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  if (x_bf16 && products_bf16) {
+    launch<__nv_bfloat16, true>(xb, cols, vals, win_off, out, n_out, r, p, k,
+                                s);
+  } else if (x_bf16) {
+    launch<__nv_bfloat16, false>(xb, cols, vals, win_off, out, n_out, r, p, k,
+                                 s);
+  } else if (products_bf16) {
+    launch<float, true>(xf, cols, vals, win_off, out, n_out, r, p, k, s);
+  } else {
+    launch<float, false>(xf, cols, vals, win_off, out, n_out, r, p, k, s);
   }
   return (int)cudaGetLastError();
 }

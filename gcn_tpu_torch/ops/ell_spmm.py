@@ -9,6 +9,11 @@
     torch (gather, weight, sum over the P strides, ``index_add_`` of each
     pass-block into its window).
 
+Both take ``gcn_tpu``'s two bf16 options: ``table_bf16`` rounds x to bf16
+once per call (K1 then gathers bf16 rows and sums in f32);
+``products_bf16`` rounds each pass-block's P-slot sum to bf16 before the
+f32 window sum.
+
 K1 replaces ``gcn_tpu/ops/ell_spmm.py::_reduce_kernel`` together with
 ``_gather_stride_sum`` and the grouped-span reduce: one launch computes the
 whole ``_spmm_ell_impl``, whatever branch the TPU path would take.
@@ -43,9 +48,9 @@ def _kernel_library():
             "gcnellspmm", _build.CUDA_LIBRARIES["gcnellspmm"], "nvcc")
         vp = ctypes.c_void_p
         i32 = ctypes.c_int32
-        lib.gcn_ell_spmm_f32.restype = ctypes.c_int
-        lib.gcn_ell_spmm_f32.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                         i32, vp]
+        lib.gcn_ell_spmm.restype = ctypes.c_int
+        lib.gcn_ell_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                     i32, i32, vp]
         _lib = lib
     return _lib
 
@@ -65,12 +70,15 @@ def _check_operands(x, cols, vals, win_off, n_out):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _ell_spmm_kernel(x, cols, vals, win_off, n_out):
+def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
     """Launch K1 on the current stream; raises on anything it cannot take
-    and on a launch error."""
+    and on a launch error. x is float32, or bfloat16 for the table_bf16
+    variant."""
     global spmm_ell_launches
-    if x.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError("K1 takes float32 x and vals")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("K1 takes float32 or bfloat16 x")
+    if vals.dtype != torch.float32:
+        raise TypeError("K1 takes float32 vals")
     if cols.dtype != torch.int32 or win_off.dtype != torch.int32:
         raise TypeError("K1 takes int32 cols and win_off")
     for name, t in (("x", x), ("cols", cols), ("vals", vals),
@@ -83,9 +91,10 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out):
         return out
     lib = _kernel_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gcn_ell_spmm_f32(
+    rc = lib.gcn_ell_spmm(
         x.data_ptr(), cols.data_ptr(), vals.data_ptr(), win_off.data_ptr(),
-        out.data_ptr(), n_out, cols.shape[2], cols.shape[1], k, stream)
+        out.data_ptr(), n_out, cols.shape[2], cols.shape[1], k,
+        int(x.dtype == torch.bfloat16), int(products_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 (ell_spmm) launch failed: CUDA error {rc}")
     spmm_ell_launches += 1
@@ -115,11 +124,9 @@ def ell_spmm(x, cols, vals, win, win_off, n_out, *, table_bf16=False,
     CUDA tensor, the plain version for a CPU tensor."""
     _check_operands(x, cols, vals, win_off, n_out)
     if x.is_cuda:
-        if table_bf16 or products_bf16:
-            raise NotImplementedError(
-                "table_bf16/products_bf16 are not in the CUDA kernel K1 yet; "
-                "see ROADMAP.md")
-        return _ell_spmm_kernel(x, cols, vals, win_off, n_out)
+        if table_bf16:
+            x = x.to(torch.bfloat16)
+        return _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16)
     if table_bf16:
         x = x.to(torch.bfloat16).float()
     return _ell_spmm_plain(x, cols, vals, win, win_off, n_out, products_bf16)

@@ -5,7 +5,8 @@ One differentiable entry point, ``spmm(adj, x)``, for every representation:
   * ``DenseAdj`` — ``torch.matmul``;
   * ``CooAdj``   — gather + ``index_add_`` (``_SpmmCoo``), with the SDDMM
     edge-weight cotangent dvals[e] = <g[row_e], x[col_e]>;
-  * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``).
+  * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``);
+  * ``PanelAdj`` — kernel K2 (``ops/panel_spmm.py``).
 
 dX = A^T @ g always comes from the stored transpose arrays.
 """
@@ -56,11 +57,16 @@ def spmm(adj, x: torch.Tensor) -> torch.Tensor:
     if isinstance(adj, CooAdj):
         return _SpmmCoo.apply(x, adj.vals, adj)
     from gcn_tpu_torch.tile.ell import EllAdj
+    from gcn_tpu_torch.tile.format import PanelAdj
 
     if isinstance(adj, EllAdj):
         from gcn_tpu_torch.ops.ell_spmm import spmm_ell
 
         return spmm_ell(adj, x)
+    if isinstance(adj, PanelAdj):
+        from gcn_tpu_torch.ops.panel_spmm import spmm_panel
+
+        return spmm_panel(adj, x)
     raise TypeError(f"unsupported adjacency representation: {type(adj)}")
 
 

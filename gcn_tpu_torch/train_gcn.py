@@ -3,7 +3,7 @@
 Usage:
     python -m gcn_tpu_torch.train_gcn -g synth-arxiv -k 32 -i 200 \
         --variant v6 [--reorder rabbit] [--adj coo|dense|ell|auto] \
-        [--device cuda|cpu]
+        [--table-bf16] [--products-bf16] [--device cuda|cpu]
 
 Prints the dataset line, the timing report and the final
 ``Test set results: loss= … accuracy= …`` line. Runs on the card unless
@@ -27,6 +27,10 @@ def main(argv=None):
     ap.add_argument("--reorder", default=None, help="identity|degree|rabbit")
     ap.add_argument("--with-val", action="store_true")
     ap.add_argument("--seed", type=int, default=15)
+    ap.add_argument("--table-bf16", action="store_true",
+                    help="ELL: gather x as bf16 rows, sum in f32")
+    ap.add_argument("--products-bf16", action="store_true",
+                    help="ELL: round each pass-block's sum to bf16")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -46,9 +50,15 @@ def main(argv=None):
     print(f"[{args.graph}] n={data.num_nodes} nnz={data.adj.nnz} "
           f"f={data.num_features} classes={data.num_classes} "
           f"(loaded in {time.time()-t0:.2f}s)")
+    adj_options = {}
+    if args.table_bf16:
+        adj_options["table_bf16"] = True
+    if args.products_bf16:
+        adj_options["products_bf16"] = True
     model = GCN(data.num_features, args.hidden, data.num_classes,
                 variant=args.variant, adj_kind=args.adj,
-                reorder=args.reorder, seed=args.seed, device=device)
+                reorder=args.reorder, seed=args.seed,
+                adj_options=adj_options, device=device)
     t0 = time.time()
     model.fit(data.features, data.adj, data.labels, data.idx_train,
               idx_val=data.idx_val if args.with_val else None,

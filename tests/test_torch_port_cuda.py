@@ -1,12 +1,15 @@
-"""Kernel K1 on the card, held against its plain version (marked ``cuda``;
-each test skips without a GPU, since a CUDA kernel has no CPU mode).
+"""Kernels K1 (ELL SpMM) and K2 (panel SpMM) on the card, held against
+their plain versions (marked ``cuda``; each test skips without a GPU, since
+a CUDA kernel has no CPU mode).
 
 This file imports neither jax nor gcn_tpu, so it also runs on a machine
 that has only the port's dependencies:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
-Tolerance: f32 rtol 1e-5 and atol 1e-6 * max|out| (sums reassociated).
+Tolerance: f32 rtol 1e-5 and atol 1e-6 * max|out| (sums reassociated);
+K1's products_bf16 at rtol and atol 2e-2, since a bf16 ulp can flip when the f32 sums it
+rounds are taken in another order.
 """
 
 import numpy as np
@@ -16,13 +19,15 @@ import torch
 from gcn_tpu_torch.graph.csr import coo_to_csr
 from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.ops import ell_spmm as es
+from gcn_tpu_torch.ops import panel_spmm as ps
+from gcn_tpu_torch.tile import panel_adjacency
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (kernel K1 has no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
     return torch.device("cuda")
 
 
@@ -43,9 +48,15 @@ def _rect_graph(seed=1, n=300, m=700):
     return coo_to_csr(src, dst, rng.random(src.shape[0]), (n, m))
 
 
-def _close(got, want):
+def _close(got, want, rtol=1e-5, atol_of_max=1e-6):
     scale = want.abs().max().item()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol_of_max * scale)
+
+
+def _share_close(got, want, rtol=1e-5, atol_of_max=1e-6):
+    """Share of the elements of ``got`` within ``_close``'s tolerance."""
+    limit = rtol * want.abs() + atol_of_max * want.abs().max()
+    return ((got - want).abs() <= limit).float().mean().item()
 
 
 @pytest.mark.cuda
@@ -93,9 +104,6 @@ def test_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         es.ell_spmm(torch.randn(8, g.shape[0], device=cuda).t(), adj.cols,
                     adj.vals, adj.win, adj.win_off, adj.row_space)
-    bf16 = ell_adjacency(g, r=8, k_pad=32, table_bf16=True, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        es.spmm_ell(bf16, torch.randn(g.shape[0], 8, device=cuda))
 
 
 @pytest.mark.cuda
@@ -117,3 +125,126 @@ def test_v6_fit_on_card_matches_cpu(cuda):
               train_iters=3, initialize=False)
         losses.append([h["loss_train"] for h in m.history])
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32, 128])
+@pytest.mark.parametrize("option,rtol", [("table_bf16", 1e-5),
+                                         ("products_bf16", 2e-2)])
+def test_kernel_bf16_options_match_plain_on_card(cuda, k, option, rtol):
+    """The bf16 variants of K1 launch (one launch each) and agree with the
+    plain version given the same option: table_bf16 at the f32 tolerance,
+    products_bf16 at rtol and atol 2e-2. products_bf16 must also really
+    round: nearly every element equals the plain version at the f32
+    tolerance (a bf16 ulp may flip), and most differ from f32 K1 by more."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
+    x = torch.randn(g.shape[0], k, device=cuda)
+    arrays = (adj.cols, adj.vals, adj.win, adj.win_off)
+    opts = {option: True}
+    before = es.spmm_ell_launches
+    got = es.ell_spmm(x, *arrays, adj.row_space, **opts)
+    torch.cuda.synchronize()
+    assert es.spmm_ell_launches == before + 1
+    want = es.ell_spmm(x.cpu(), *(a.cpu() for a in arrays), adj.row_space,
+                       **opts)
+    if option == "table_bf16":
+        _close(got.cpu(), want, rtol=rtol)
+        return
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=rtol)
+    f32 = es.ell_spmm(x, *arrays, adj.row_space)
+    assert _share_close(got.cpu(), want) >= 0.99
+    assert _share_close(got, f32) <= 0.5
+
+
+def _panel_graphs():
+    """(name, graph): hub rows spanning several blocks, a rectangular
+    non-symmetric matrix, and a graph with 128+ edgeless rows in a row."""
+    rng = np.random.default_rng(3)
+    n = 700
+    src = np.concatenate([np.zeros(1300, np.int64), np.ones(600, np.int64),
+                          rng.integers(2, n, 4000)])
+    hub = gcn_normalize(coo_to_csr(src, rng.integers(0, n, src.shape[0]),
+                                   None, (n, n)).symmetrize())
+    rows = np.concatenate([rng.integers(0, 100, 800),
+                           rng.integers(300, 400, 800)])
+    gap = coo_to_csr(rows, rng.integers(0, 400, rows.shape[0]),
+                     rng.random(rows.shape[0]), (400, 400))
+    return [("hub", hub.permute(degree_sort_order(hub))),
+            ("rect", _rect_graph()), ("empty_window", gap)]
+
+
+# k % 4 != 0 goes through the wrapper's zero-padded copy of x
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 48, 128])
+@pytest.mark.parametrize("r,nb", [(128, 512), (16, 128)])
+def test_panel_kernel_matches_plain_on_card(cuda, k, r, nb):
+    for name, g in _panel_graphs():
+        adj = panel_adjacency(g, r=r, nb=nb, device=cuda)
+        for t in (False, True):
+            if t:
+                arrays = (adj.t_cols, adj.t_vals, adj.t_local_row,
+                          adj.t_row_base, adj.t_win_off)
+                n_in, n_out = adj.n_rows, adj.n_cols
+            else:
+                arrays = (adj.cols, adj.vals, adj.local_row, adj.row_base,
+                          adj.win_off)
+                n_in, n_out = adj.n_cols, adj.n_rows
+            x = torch.randn(n_in, k, device=cuda)
+            before = ps.spmm_panel_launches
+            got = ps.panel_spmm(x, *arrays, adj.r, n_out)
+            torch.cuda.synchronize()
+            assert ps.spmm_panel_launches == before + 1, name
+            want = ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out)
+            _close(got, want)
+
+
+@pytest.mark.cuda
+def test_panel_kernel_on_unaligned_x(cuda):
+    """x that starts 4 bytes past a 16-byte boundary (k % 4 == 0) goes
+    through the wrapper's aligned copy and agrees all the same."""
+    adj = panel_adjacency(_rect_graph(), device=cuda)
+    k = 32
+    x = torch.randn(adj.n_cols * k + 1, device=cuda)[1:].view(adj.n_cols, k)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    arrays = (adj.cols, adj.vals, adj.local_row, adj.row_base, adj.win_off)
+    _close(ps.panel_spmm(x, *arrays, adj.r, adj.n_rows),
+           ps._panel_spmm_plain(x, *arrays[:4], adj.r, adj.n_rows))
+
+
+@pytest.mark.cuda
+def test_panel_autograd_on_card_matches_cpu(cuda):
+    """Forward, dX and dvals of a non-symmetric matrix, card against CPU."""
+    import dataclasses
+
+    adj = panel_adjacency(_rect_graph(), device="cpu")
+    assert not adj.symmetric
+    x = torch.randn(adj.n_cols, 16, requires_grad=True)
+    ct = torch.randn(adj.n_rows, 16)
+    vals = adj.vals.clone().requires_grad_(True)
+    out = ps.spmm_panel(dataclasses.replace(adj, vals=vals), x)
+    out.backward(ct)
+    adj_c = adj.to(cuda)
+    xc = x.detach().to(cuda).requires_grad_(True)
+    vc = adj_c.vals.clone().requires_grad_(True)
+    out_c = ps.spmm_panel(dataclasses.replace(adj_c, vals=vc), xc)
+    out_c.backward(ct.to(cuda))
+    _close(out_c.detach().cpu(), out.detach())
+    _close(xc.grad.cpu(), x.grad)
+    _close(vc.grad.cpu(), vals.grad)
+
+
+@pytest.mark.cuda
+def test_panel_kernel_rejects_bad_operands(cuda):
+    adj = panel_adjacency(_rect_graph(), device=cuda)
+    arrays = (adj.cols, adj.vals, adj.local_row, adj.row_base, adj.win_off)
+    with pytest.raises(TypeError):
+        ps.panel_spmm(torch.randn(adj.n_cols, 8, device=cuda,
+                                  dtype=torch.float64), *arrays, adj.r,
+                      adj.n_rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        ps.panel_spmm(torch.randn(8, adj.n_cols, device=cuda).t(), *arrays,
+                      adj.r, adj.n_rows)
+    with pytest.raises(ValueError, match="windows"):
+        ps.panel_spmm(torch.randn(adj.n_cols, 8, device=cuda), *arrays,
+                      adj.r, adj.n_rows + adj.r)

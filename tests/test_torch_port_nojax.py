@@ -1,4 +1,5 @@
-"""gcn_tpu_torch imports and trains with jax and gcn_tpu blocked."""
+"""gcn_tpu_torch imports, trains, and runs the panel SpMM with jax and
+gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -24,6 +25,21 @@ leaked = sorted(k for k in sys.modules
                 and sys.modules[k] is not None)
 assert not leaked, leaked
 m.test(data.idx_test)
+import torch
+from gcn_tpu_torch.graph.normalize import gcn_normalize
+from gcn_tpu_torch.ops.spmm import spmm
+from gcn_tpu_torch.tile import panel_adjacency
+g = gcn_normalize(data.adj)
+adj = panel_adjacency(g, device="cpu")
+x = torch.tensor(data.features, requires_grad=True)
+spmm(adj, x).sum().backward()
+assert torch.allclose(x.grad.sum(dim=1),
+                      torch.tensor(g.to_dense().sum(axis=0)) * x.shape[1],
+                      rtol=1e-5, atol=1e-5)
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
+                and sys.modules[k] is not None)
+assert not leaked, leaked
 """
 
 

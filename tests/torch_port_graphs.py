@@ -1,18 +1,21 @@
 """Inputs shared by the port's SpMM tests: graphs made with numpy from a
-seed and built by both packages, and the branch cases of gcn_tpu's
-``_spmm_ell_impl`` that the port's single kernel must cover."""
+seed and built by both packages, the branch cases of gcn_tpu's
+``_spmm_ell_impl`` that the port's single kernel must cover, and the graphs
+of the panel (PanelAdj) tests."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from gcn_tpu.data.synthetic import sbm as jx_sbm
 from gcn_tpu.graph.csr import coo_to_csr as jx_coo
 from gcn_tpu.graph.normalize import gcn_normalize as jx_normalize
 from gcn_tpu.ops.ell_spmm import spmm_ell as jx_spmm_ell
 from gcn_tpu.tile.ell import degree_sort_order as jx_degree_sort
 from gcn_tpu.tile.ell import ell_adjacency as jx_ell
 
+from gcn_tpu_torch.data.synthetic import sbm
 from gcn_tpu_torch.graph.csr import coo_to_csr
 from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.ops import ell_spmm as es
@@ -144,3 +147,40 @@ def check_case(case):
     x = rng.standard_normal((g.shape[1], k)).astype(np.float32)
     dense = g.to_dense().astype(np.float64)
     np.testing.assert_allclose(out, dense @ x.astype(np.float64), **TOL)
+
+
+def sbm_graph():
+    """The SBM graph of tests/test_tile.py, normalized, in both packages."""
+    g, _ = sbm(n=700, n_classes=5, avg_degree=9.0, seed=2)
+    jg, _ = jx_sbm(n=700, n_classes=5, avg_degree=9.0, seed=2)
+    return gcn_normalize(g), jx_normalize(jg)
+
+
+def powerlaw_graph(seed, n=3000):
+    """Pareto degrees, symmetric and normalized; the hubs pass NB = 512."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(1.0, n) * 4 + 1).astype(np.int64), 1500)
+    deg[:3] = (1500, 900, 700)
+    src = np.repeat(np.arange(n), deg)
+    return graphs(src, rng.integers(0, n, src.shape[0]), None, (n, n),
+                  symmetric=True)
+
+
+def empty_window_graph(seed, n=400):
+    """Rows 100..299 have no edge: window 1 of R = 128 holds only zeros."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, 100, 700),
+                          rng.integers(300, n, 700)])
+    return graphs(src, rng.integers(0, n, src.shape[0]),
+                  rng.random(src.shape[0]).astype(np.float32), (n, n))
+
+
+# name: graphs of the panel tests (default R = 128, NB = 512)
+PANEL_GRAPHS = {
+    "sbm": sbm_graph,
+    "powerlaw": lambda: powerlaw_graph(21),
+    "rect": lambda: rect_graph(22, n=300, m=200, e=2500),
+    "n_not_multiple_of_r": lambda: random_graph(23, n=333, m=3000,
+                                                symmetric=True),
+    "empty_window": lambda: empty_window_graph(24),
+}
