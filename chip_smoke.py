@@ -18,22 +18,33 @@ non-zero):
      path's shapes: synth-arxiv forward at k=32, the layer-1 hoist at
      k=128 (4 column tiles), the backward on the transpose arrays, and a
      non-symmetric rectangular matrix forward and backward; tolerance f32
-     rtol 1e-5 and atol 1e-6 * max|out| (sums are reassociated). K1's
+     rtol 1e-5 and atol 1e-6 * max|out| (sums are reassociated), against
+     the plain version evaluated in float64 (two f32 orders of the
+     rectangular matrix's 3000-term rows can differ by more than that). K1's
      bf16 variants at synth-arxiv forward k=32 and on the rectangular
      matrix's transpose arrays: table_bf16 at the f32 tolerance (the same
      bf16 inputs, f32 sums), products_bf16 at rtol and atol 2e-2 (a bf16
      ulp can flip when f32 sums are taken in another order), and
      products_bf16 really rounds: >= 99% of its elements equal the plain
      version at the f32 tolerance and >= 50% differ from f32 K1 by more;
+     then the shapes K1's design adds: windows at the 16-pass-block hub
+     cap beside windows of one, widths k = 1, 4, 33, 200, x views that K1
+     reads in place (row stride 36) or copies (an unaligned base, a row
+     stride of 33), and two calls of each variant bit-equal;
   4. K1's time (CUDA events, median of 30 chained calls), its bf16
      variants', the plain versions', ``torch.sparse.mm`` on the same CSR as
      the library yardstick, and the bound reckoned from this run's inputs;
-  5. K2 (the panel SpMM) against its plain version, at the f32 tolerance:
+  5. K2 (the panel SpMM) against its plain version in float64, at the f32
+     tolerance:
      synth-arxiv forward at k=32 and k=128, the layer-1 hoist at k=128 (4
      chunks), the rectangular matrix forward and its transpose arrays, a
-     graph with edgeless windows, autograd dX card against CPU; then K2
-     against K1 + hub epilogue on the same graph and x (the cross-check K2
-     exists for), and K2's timing beside its bound;
+     graph with edgeless windows, autograd dX card against CPU; the split
+     plan remade at other thresholds (every window split across a cluster,
+     with runs that cross part boundaries and parts of padding only; no
+     window split), an unaligned x and a row stride of 33, and two calls
+     bit-equal; then K2 against K1 + hub epilogue on the same graph and x
+     (the cross-check K2 exists for), and K2's timing beside its bound,
+     with its heavy-window launch and its light one timed apart;
   6. a 5-step v6 fit (dropout 0) on the card and on the CPU from the same
      parameters: per-step losses agree at rtol 1e-4; the same 5 steps with
      each bf16 option agree with the card's f32 losses at 2e-2 and count
@@ -47,7 +58,8 @@ non-zero):
      0.5, seed 15) with K1's and K2's launch counts read around it: the
      loss falls, the output is finite and normalized, K2 ran 4 (hoist) + 2
      per step + 1 (eval) times and K1 none;
-  9. where a v6 step's time goes: 10 more steps under torch.profiler.
+  9. where a v6 step's time goes: 10 more steps under torch.profiler, with
+     K1's device ms per step.
 
 Then one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi
 line again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -89,7 +101,7 @@ def compare(name, got, want, rtol=RTOL, atol=None):
     is given)."""
     import torch
 
-    got, want = got.float(), want.float()
+    got, want = got.double(), want.double()
     if got.shape != want.shape:
         fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
@@ -131,9 +143,59 @@ def check_rounds(name, got, want, unrounded):
         fail(f"{name}: K1 does not round each pass-block's sum to bf16")
 
 
+def check_repeat(name, fn):
+    """Two calls of ``fn`` must give bit-equal results (no atomics, a fixed
+    order of summation)."""
+    import torch
+
+    a, b = fn(), fn()
+    ok = torch.equal(a, b)
+    print(f"  determinism {name}: two calls bit-equal -> "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name}: two calls differ")
+
+
+def with_split(padj, split_slots):
+    """``padj`` (symmetric) with K2's split plan remade at ``split_slots``
+    slots."""
+    import dataclasses
+
+    import torch
+
+    from gcn_tpu_torch.tile.tiler import split_plan
+
+    plan = tuple(torch.from_numpy(a).to(padj.win_off.device) for a in
+                 split_plan(padj.win_off.cpu().numpy(), padj.nb, split_slots))
+    return dataclasses.replace(
+        padj, heavy=plan[0], heavy_parts=plan[1], light=plan[2],
+        t_heavy=plan[0], t_heavy_parts=plan[1], t_light=plan[2])
+
+
+def split_features(padj):
+    """(runs crossing a part boundary, parts of padding only) over the
+    forward plan's heavy windows."""
+    import numpy as np
+
+    off = padj.win_off.cpu().numpy()
+    lrow = padj.local_row.cpu().numpy().reshape(-1)
+    heavy, parts, _ = (t.cpu().numpy() for t in padj.plan)
+    starts = (off[heavy].astype(np.int64) * padj.nb)[:, None] + parts
+    inner = starts[:, 1:-1][parts[:, 1:-1] < parts[:, -1:]]
+    cross = int(((lrow[inner - 1] == lrow[inner])
+                 & (lrow[inner] < padj.r)).sum())
+    pad_only = 0
+    for lo, hi in zip(starts[:, :-1].ravel(), starts[:, 1:].ravel()):
+        pad_only += int(hi > lo and (lrow[lo:hi] == padj.r).all())
+    return cross, pad_only
+
+
 def time_chain(fn, x, n_out_rows, reps):
     """Median ms per call of ``reps`` chained calls, each fed the first
-    rows of the previous output (CUDA events around every call)."""
+    rows of the previous output (CUDA events around every call). The chain
+    is queued behind a spin kernel of ~0.1 s, so the host is done
+    enqueueing before the card reaches it: the events read device time,
+    not the wrapper's Python time."""
     import torch
 
     for _ in range(3):
@@ -141,6 +203,7 @@ def time_chain(fn, x, n_out_rows, reps):
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
     cur = x
     for start, end in events:
         start.record()
@@ -208,10 +271,12 @@ def profile_steps(model, idx_train, steps):
         by_name[evt.name] = (by_name.get(evt.name, 0.0)
                              + evt.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values())
+    k1_ms = sum(ms for name, ms in by_name.items() if "ell_spmm" in name)
     print(f"[profile] {steps} steps under torch.profiler: wall "
           f"{wall_ms / steps:.3f} ms/step, device busy {busy_ms / steps:.3f}"
           f" ms/step ({100 * busy_ms / wall_ms:.1f}% busy), "
-          f"{n_kernels / steps:.1f} device activities/step", flush=True)
+          f"{n_kernels / steps:.1f} device activities/step; K1 "
+          f"{k1_ms / steps:.4f} device ms/step", flush=True)
     if not by_name:
         print("  the profiler recorded no device time: not measured")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -292,6 +357,7 @@ def main():
     from gcn_tpu_torch.reorder import native, reorder_graph
     from gcn_tpu_torch.tile import panel_adjacency
     from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+    from gcn_tpu_torch.tile.tiler import default_split_slots
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -344,31 +410,38 @@ def main():
         return es.ell_spmm(x, a.cols, a.vals, a.win, a.win_off, a.row_space,
                            **opts)
 
-    def plain(a, x, t=False, table_bf16=False, products_bf16=False):
+    def plain(a, x, t=False, table_bf16=False, products_bf16=False,
+              f64=False):
+        """K1's plain version; ``f64`` evaluates it in float64, the exact
+        reference of the f32 checks."""
         if table_bf16:
             x = x.to(torch.bfloat16).float()
+        dt = torch.float64 if f64 else torch.float32
         if t:
-            return es._ell_spmm_plain(x, a.t_cols, a.t_vals, a.t_win,
-                                      a.t_win_off, a.t_row_space,
+            return es._ell_spmm_plain(x.to(dt), a.t_cols, a.t_vals.to(dt),
+                                      a.t_win, a.t_win_off, a.t_row_space,
                                       products_bf16)
-        return es._ell_spmm_plain(x, a.cols, a.vals, a.win, a.win_off,
-                                  a.row_space, products_bf16)
+        return es._ell_spmm_plain(x.to(dt), a.cols, a.vals.to(dt), a.win,
+                                  a.win_off, a.row_space, products_bf16)
+
+    def exact(a, x, t=False, **opts):
+        return plain(a, x, t, f64=True, **opts)
 
     print("[K1 vs plain]", flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     errs = []
     x32 = torch.randn(n, 32, device=dev, generator=gen)
-    errs.append(compare("arxiv fwd k=32", k1(adj, x32), plain(adj, x32)))
+    errs.append(compare("arxiv fwd k=32", k1(adj, x32), exact(adj, x32)))
     feats = torch.as_tensor(data.features[perm], device=dev)
     errs.append(compare("arxiv k=128 one launch", k1(adj, feats),
-                        plain(adj, feats)))
+                        exact(adj, feats)))
     errs.append(compare("arxiv hoist k=128 (4 tiles)",
                         hoist_spmm(adj, feats),
-                        es._hub_epilogue(plain(adj, feats), adj.virt_map,
+                        es._hub_epilogue(exact(adj, feats), adj.virt_map,
                                          adj.n_hub, n)))
     ct = torch.randn(n, 32, device=dev, generator=gen)
     errs.append(compare("arxiv bwd (transpose arrays)", k1(adj, ct, True),
-                        plain(adj, ct, True)))
+                        exact(adj, ct, True)))
     # non-symmetric rectangular matrix with hub rows: distinct transpose
     rng = np.random.default_rng(SEED)
     nr, nc = 60_000, 25_000
@@ -381,9 +454,9 @@ def main():
         fail("rectangular check graph lost its asymmetry or hub rows")
     xr = torch.randn(nc, 32, device=dev, generator=gen)
     gr = torch.randn(nr, 32, device=dev, generator=gen)
-    errs.append(compare("rect fwd k=32", k1(radj, xr), plain(radj, xr)))
+    errs.append(compare("rect fwd k=32", k1(radj, xr), exact(radj, xr)))
     errs.append(compare("rect bwd (transpose arrays)", k1(radj, gr, True),
-                        plain(radj, gr, True)))
+                        exact(radj, gr, True)))
     xg = xr.clone().requires_grad_(True)
     es.spmm_ell(radj, xg).backward(gr)
     radj_cpu = radj.to("cpu")
@@ -392,7 +465,6 @@ def main():
     errs.append(compare("rect autograd dX, card vs cpu", xg.grad.cpu(),
                         xc.grad))
     torch.cuda.synchronize()
-    max_abs_err = max(errs)
 
     print("[K1 bf16 vs plain]", flush=True)
     bf16_err = {"table_bf16": 0.0, "products_bf16": 0.0}
@@ -400,13 +472,38 @@ def main():
                            ("rect bwd (transpose arrays)", radj, gr, True)):
         o = {"table_bf16": True}
         bf16_err["table_bf16"] = max(bf16_err["table_bf16"], compare(
-            f"table_bf16 {label}", k1(a, x, t, **o), plain(a, x, t, **o)))
+            f"table_bf16 {label}", k1(a, x, t, **o), exact(a, x, t, **o)))
         o = {"products_bf16": True}
         got, want = k1(a, x, t, **o), plain(a, x, t, **o)
         bf16_err["products_bf16"] = max(bf16_err["products_bf16"], compare(
             f"products_bf16 {label}", got, want, BF16_TOL, atol=BF16_TOL))
         check_rounds(f"products_bf16 {label}", got, want, k1(a, x, t))
     torch.cuda.synchronize()
+
+    print("[K1 redesign cases] synth-arxiv forward", flush=True)
+    blocks = adj.win_off.diff()
+    print(f"  pass-blocks a window: max {int(blocks.max())} (the hub cap "
+          f"{adj.span_pass_limit}), min {int(blocks.min())}, "
+          f"{int((blocks == 1).sum())} windows of one", flush=True)
+    if int(blocks.max()) > adj.span_pass_limit:
+        fail("a window of the hub-split layout passes the hub cap")
+    views = {"k=1": x32[:, :1].contiguous(), "k=4": x32[:, :4].contiguous(),
+             "k=33": torch.randn(n, 33, device=dev, generator=gen),
+             "k=200": torch.randn(n, 200, device=dev, generator=gen),
+             "row stride 36, read in place":
+                 torch.randn(n, 36, device=dev, generator=gen)[:, :32],
+             "row stride 33, copied":
+                 torch.randn(n, 33, device=dev, generator=gen)[:, :32],
+             "unaligned base, copied": torch.randn(
+                 n * 32 + 1, device=dev, generator=gen)[1:].view(n, 32)}
+    for label, x in views.items():
+        errs.append(compare(label, k1(adj, x), exact(adj, x)))
+    for opts in ({}, {"table_bf16": True}, {"products_bf16": True}):
+        check_repeat(f"K1 {next(iter(opts), 'f32')}",
+                     lambda: k1(adj, x32, **opts))
+    torch.cuda.synchronize()
+
+    max_abs_err = max(errs)
 
     # ---- 4. K1 timing at the main path's shape ---------------------------
     print("[K1 timing] synth-arxiv forward, k=32", flush=True)
@@ -439,39 +536,54 @@ def main():
     # ---- 5. K2 against its plain version, against K1, and its time -------
     t0 = time.time()
     padj = panel_adjacency(g, symmetric=True, device=dev)
+    wblocks = padj.win_off.diff()
+    top = sorted(wblocks.tolist(), reverse=True)[:8]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_slots = default_split_slots(padj.win_off.cpu().numpy(), padj.nb,
+                                      sms)
     print(f"[panel] synth-arxiv windows={padj.win_off.numel() - 1} "
           f"blocks={padj.num_blocks} slots={padj.cols.numel()} "
           f"pad={padj.pad_fraction:.3f} max blocks/window="
-          f"{int(padj.win_off.diff().max())} ({time.time() - t0:.1f}s)",
+          f"{int(wblocks.max())} ({time.time() - t0:.1f}s); largest "
+          f"windows (blocks) {top}; split threshold {split_slots} "
+          f"slots ({sms} SMs): {padj.heavy.numel()} heavy windows "
+          f"{padj.heavy.tolist()[:8]}, {padj.light.numel()} light",
           flush=True)
 
     def k2(a, x, t=False):
         if t:
             return ps.panel_spmm(x, a.t_cols, a.t_vals, a.t_local_row,
-                                 a.t_row_base, a.t_win_off, a.r, a.n_cols)
+                                 a.t_row_base, a.t_win_off, a.r, a.n_cols,
+                                 a.t_plan)
         return ps.panel_spmm(x, a.cols, a.vals, a.local_row, a.row_base,
-                             a.win_off, a.r, a.n_rows)
+                             a.win_off, a.r, a.n_rows, a.plan)
 
-    def plain2(a, x, t=False):
+    def plain2(a, x, t=False, f64=False):
+        """K2's plain version; ``f64`` evaluates it in float64."""
+        dt = torch.float64 if f64 else torch.float32
         if t:
-            return ps._panel_spmm_plain(x, a.t_cols, a.t_vals, a.t_local_row,
-                                        a.t_row_base, a.r, a.n_cols)
-        return ps._panel_spmm_plain(x, a.cols, a.vals, a.local_row,
-                                    a.row_base, a.r, a.n_rows)
+            return ps._panel_spmm_plain(x.to(dt), a.t_cols, a.t_vals.to(dt),
+                                        a.t_local_row, a.t_row_base, a.r,
+                                        a.n_cols)
+        return ps._panel_spmm_plain(x.to(dt), a.cols, a.vals.to(dt),
+                                    a.local_row, a.row_base, a.r, a.n_rows)
+
+    def exact2(a, x, t=False):
+        return plain2(a, x, t, f64=True)
 
     print("[K2 vs plain]", flush=True)
-    errs2 = [compare("arxiv fwd k=32", k2(padj, x32), plain2(padj, x32)),
+    errs2 = [compare("arxiv fwd k=32", k2(padj, x32), exact2(padj, x32)),
              compare("arxiv fwd k=128", k2(padj, feats),
-                     plain2(padj, feats)),
+                     exact2(padj, feats)),
              compare("arxiv hoist k=128 (4 chunks)", hoist_spmm(padj, feats),
-                     plain2(padj, feats))]
+                     exact2(padj, feats))]
     rpadj = panel_adjacency(rg, device=dev)
     if rpadj.symmetric or int(rpadj.win_off[:2].diff()) < 2:
         fail("rectangular panel graph lost its asymmetry or multi-block "
              "window")
-    errs2.append(compare("rect fwd k=32", k2(rpadj, xr), plain2(rpadj, xr)))
+    errs2.append(compare("rect fwd k=32", k2(rpadj, xr), exact2(rpadj, xr)))
     errs2.append(compare("rect transpose arrays", k2(rpadj, gr, True),
-                         plain2(rpadj, gr, True)))
+                         exact2(rpadj, gr, True)))
     ne = 50_000
     src = np.concatenate([rng.integers(0, 10_000, 150_000),
                           rng.integers(10_500, ne, 600_000)])
@@ -485,13 +597,29 @@ def main():
         fail("edgeless-window graph has no window of zeros")
     xe = torch.randn(ne, 32, device=dev, generator=gen)
     errs2.append(compare("edgeless windows fwd k=32", k2(epadj, xe),
-                         plain2(epadj, xe)))
+                         exact2(epadj, xe)))
     xg = xr.clone().requires_grad_(True)
     ps.spmm_panel(rpadj, xg).backward(gr)
     xc = xr.cpu().requires_grad_(True)
     ps.spmm_panel(rpadj.to("cpu"), xc).backward(gr.cpu())
     errs2.append(compare("rect autograd dX, card vs cpu", xg.grad.cpu(),
                          xc.grad))
+    print("[K2 redesign cases] synth-arxiv forward, k=32", flush=True)
+    for limit in (0, 1 << 30):
+        sadj = with_split(padj, limit)
+        label = (f"split threshold {limit}: {sadj.heavy.numel()} heavy "
+                 f"windows")
+        if limit == 0:
+            cross, pad_only = split_features(sadj)
+            label += (f", {cross} runs across part boundaries, {pad_only} "
+                      f"parts of padding only")
+            if not cross or not pad_only:
+                fail("the split check lacks boundary runs or padding parts")
+        errs2.append(compare(label, k2(sadj, x32), exact2(padj, x32)))
+    for label in ("row stride 33, copied", "unaligned base, copied"):
+        x = views[label]
+        errs2.append(compare(label, k2(padj, x), exact2(padj, x)))
+    check_repeat("K2", lambda: k2(padj, x32))
     print("[K2 vs K1] synth-arxiv, same graph and x", flush=True)
     errs2.append(compare("K2 vs K1 + hub epilogue, k=32", k2(padj, x32),
                          es._hub_epilogue(k1(adj, x32), adj.virt_map,
@@ -501,8 +629,27 @@ def main():
     print("[K2 timing] synth-arxiv forward, k=32", flush=True)
     k2_ms = time_chain(lambda x: k2(padj, x), x32, n, 30)
     plain2_ms = time_chain(lambda x: plain2(padj, x), x32, n, 5)
-    print(f"  K2 {k2_ms:.4f} ms | plain {plain2_ms:.4f} ms | "
-          f"torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
+
+    def k2_split_ms(a):
+        """K2's heavy-window launch and its light one, each alone (the
+        other's rows are left unwritten), in ms."""
+        heavy, parts, light = a.plan
+
+        def launch(x, plan):
+            return ps._panel_spmm_kernel(x, a.cols, a.vals, a.local_row,
+                                         a.win_off, a.r, n, plan)
+
+        return (time_chain(lambda x: launch(x, (heavy, parts, light[:0])),
+                           x32, n, 30),
+                time_chain(lambda x: launch(x, (heavy[:0], parts[:0], light)),
+                           x32, n, 30))
+
+    heavy_ms, light_ms = k2_split_ms(padj)
+    print(f"  K2 {k2_ms:.4f} ms: heavy-window launch {heavy_ms:.4f} ms "
+          f"({padj.heavy.numel()} windows x 8 CTAs), light launch "
+          f"{light_ms:.4f} ms ({padj.light.numel()} windows) | plain "
+          f"{plain2_ms:.4f} ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms",
+          flush=True)
     bound2_ms, bound2_by = k2_bound(padj, n, 32)
     print(f"  K2 at {100 * bound2_ms / k2_ms:.1f}% of the bound "
           f"(by {bound2_by})", flush=True)
@@ -665,6 +812,9 @@ def main():
         "bound_ms": bound2_ms,
         "bound_by": bound2_by,
         "library_ms": lib_ms,
+        "heavy_ms": heavy_ms,
+        "light_ms": light_ms,
+        "heavy_windows": padj.heavy.numel(),
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

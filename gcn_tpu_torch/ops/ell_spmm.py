@@ -16,7 +16,9 @@ f32 window sum.
 
 K1 replaces ``gcn_tpu/ops/ell_spmm.py::_reduce_kernel`` together with
 ``_gather_stride_sum`` and the grouped-span reduce: one launch computes the
-whole ``_spmm_ell_impl``, whatever branch the TPU path would take.
+whole ``_spmm_ell_impl``, whatever branch the TPU path would take. K1 reads
+x one 4-element vector at a time; an x it cannot read in place is copied
+into zero-padded rows first (``_align.aligned_rows``).
 
 ``spmm_ell(adj, x)`` is the differentiable entry (``_SpmmEll``): the forward
 runs K1 on the forward arrays then ``_hub_epilogue`` (fold the virtual hub
@@ -34,6 +36,7 @@ import ctypes
 import torch
 
 from gcn_tpu_torch.ops import _build
+from gcn_tpu_torch.ops._align import aligned_rows
 
 # kernel launches of K1; each launch adds one (read by chip_smoke.py)
 spmm_ell_launches = 0
@@ -49,8 +52,8 @@ def _kernel_library():
         vp = ctypes.c_void_p
         i32 = ctypes.c_int32
         lib.gcn_ell_spmm.restype = ctypes.c_int
-        lib.gcn_ell_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                     i32, i32, vp]
+        lib.gcn_ell_spmm.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32, i32,
+                                     i32, i32, i32, vp]
         _lib = lib
     return _lib
 
@@ -73,7 +76,8 @@ def _check_operands(x, cols, vals, win_off, n_out):
 def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
     """Launch K1 on the current stream; raises on anything it cannot take
     and on a launch error. x is float32, or bfloat16 for the table_bf16
-    variant."""
+    variant; its rows must be contiguous, and any other row stride or
+    alignment than K1's vector loads take is copied (``aligned_rows``)."""
     global spmm_ell_launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("K1 takes float32 or bfloat16 x")
@@ -81,19 +85,23 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
         raise TypeError("K1 takes float32 vals")
     if cols.dtype != torch.int32 or win_off.dtype != torch.int32:
         raise TypeError("K1 takes int32 cols and win_off")
-    for name, t in (("x", x), ("cols", cols), ("vals", vals),
-                    ("win_off", win_off)):
+    for name, t in (("cols", cols), ("vals", vals), ("win_off", win_off)):
         if not t.is_contiguous():
             raise ValueError(f"K1 needs a contiguous {name}")
+    r = cols.shape[2]
+    if r % 4 or cols.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("K1 copies cols/vals 16 bytes at a time: R must be "
+                         "a multiple of 4 and both arrays 16-byte aligned")
     k = x.shape[1]
     out = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
     if n_out == 0 or k == 0:
         return out
+    x, ldx = aligned_rows(x, "K1")
     lib = _kernel_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.gcn_ell_spmm(
-        x.data_ptr(), cols.data_ptr(), vals.data_ptr(), win_off.data_ptr(),
-        out.data_ptr(), n_out, cols.shape[2], cols.shape[1], k,
+        x.data_ptr(), ldx, cols.data_ptr(), vals.data_ptr(),
+        win_off.data_ptr(), out.data_ptr(), n_out, r, cols.shape[1], k,
         int(x.dtype == torch.bfloat16), int(products_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 (ell_spmm) launch failed: CUDA error {rc}")
@@ -106,13 +114,14 @@ def _ell_spmm_plain(x, cols, vals, win, win_off, n_out,
     """K1's function in plain torch: per pass-block products
     ``sum_j vals[b, j] * x[cols[b, j]]`` (R, k), added into window
     ``win[b]``. ``products_bf16`` rounds each pass-block product to bf16,
-    as ``gcn_tpu``'s products_bf16 option does."""
+    as ``gcn_tpu``'s products_bf16 option does. Float32 for float32
+    operands; float64 operands give an exact reference."""
     r = cols.shape[2]
     k = x.shape[1]
     prod = (x[cols] * vals.unsqueeze(-1)).sum(dim=1)          # (nb, r, k)
     if products_bf16:
-        prod = prod.to(torch.bfloat16).float()
-    out = torch.zeros((win_off.shape[0] - 1, r, k), dtype=torch.float32,
+        prod = prod.to(torch.bfloat16).to(prod.dtype)
+    out = torch.zeros((win_off.shape[0] - 1, r, k), dtype=prod.dtype,
                       device=x.device)
     out.index_add_(0, win, prod)
     return out.reshape(-1, k)[:n_out]

@@ -17,12 +17,22 @@ checks it).
                                     [win_off[w], win_off[w + 1])
 
 ``win_off`` is the port's addition (``gcn_tpu`` scalar-prefetches
-``row_base // R`` instead): kernel K2 (``ops/panel_spmm.py``) gives each
-window to one thread block, which finds its blocks through it. The
-trailing all-padding blocks (``num_blocks`` is padded to a multiple of
-``BLOCK_PAD``) count in the last window. ``t_*`` mirror the arrays for the
-transpose (backward dX = A^T g) and alias the forward tensors when A is
-symmetric. The defaults are ``gcn_tpu``'s, so that the arrays are equal.
+``row_base // R`` instead): kernel K2 (``ops/panel_spmm.py``) finds each
+window's blocks through it. The trailing all-padding blocks (``num_blocks``
+is padded to a multiple of ``BLOCK_PAD``) count in the last window. So is
+K2's window split plan (``tile/tiler.py::split_plan``), made once on the
+host:
+
+  heavy       int32[n_heavy]                windows of more slots than
+                                            the split threshold
+  heavy_parts int32[n_heavy, SPLIT_PARTS+1] each heavy window's part
+                                            offsets, in slots from its
+                                            first slot
+  light       int32[num_windows - n_heavy]  the other windows
+
+``t_*`` mirror the arrays for the transpose (backward dX = A^T g) and alias
+the forward tensors when A is symmetric. The defaults are ``gcn_tpu``'s, so
+that the arrays are equal.
 """
 
 from __future__ import annotations
@@ -35,9 +45,13 @@ import torch
 DEFAULT_R = 128
 DEFAULT_NB = 512
 BLOCK_PAD = 16
+SPLIT_PARTS = 8   # K2's thread blocks a heavy window: one cluster
+NUM_SMS = 132     # SMs of an H100 SXM: the split plan of a layout built
+                  # off the card
 
-_TENSORS = ("cols", "vals", "local_row", "row_base", "win_off", "t_cols",
-            "t_vals", "t_local_row", "t_row_base", "t_win_off")
+_TENSORS = ("cols", "vals", "local_row", "row_base", "win_off", "heavy",
+            "heavy_parts", "light", "t_cols", "t_vals", "t_local_row",
+            "t_row_base", "t_win_off", "t_heavy", "t_heavy_parts", "t_light")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +64,17 @@ class PanelAdj:
     local_row: torch.Tensor   # int32[num_blocks, NB]
     row_base: torch.Tensor    # int32[num_blocks]
     win_off: torch.Tensor     # int32[num_windows + 1]
+    heavy: torch.Tensor       # int32[n_heavy]
+    heavy_parts: torch.Tensor  # int32[n_heavy, SPLIT_PARTS + 1]
+    light: torch.Tensor       # int32[num_windows - n_heavy]
     t_cols: torch.Tensor
     t_vals: torch.Tensor
     t_local_row: torch.Tensor
     t_row_base: torch.Tensor
     t_win_off: torch.Tensor
+    t_heavy: torch.Tensor
+    t_heavy_parts: torch.Tensor
+    t_light: torch.Tensor
     n_rows: int
     n_cols: int
     nnz: int
@@ -69,6 +89,16 @@ class PanelAdj:
     @property
     def shape(self):
         return (self.n_rows, self.n_cols)
+
+    @property
+    def plan(self):
+        """K2's split plan of the forward arrays: (heavy, heavy_parts,
+        light)."""
+        return self.heavy, self.heavy_parts, self.light
+
+    @property
+    def t_plan(self):
+        return self.t_heavy, self.t_heavy_parts, self.t_light
 
     @property
     def pad_fraction(self) -> float:
@@ -92,13 +122,15 @@ class PanelAdj:
     def validate(self) -> None:
         """Host-side format-invariant walker; raises AssertionError on the
         first violated invariant. Not for the hot path."""
-        for name, cols, vals, lrow, base, off, n_rows, n_cols in (
+        for name, cols, vals, lrow, base, off, plan, n_rows, n_cols in (
                 ("fwd", self.cols, self.vals, self.local_row, self.row_base,
-                 self.win_off, self.n_rows, self.n_cols),
+                 self.win_off, self.plan, self.n_rows, self.n_cols),
                 ("bwd", self.t_cols, self.t_vals, self.t_local_row,
-                 self.t_row_base, self.t_win_off, self.n_cols, self.n_rows)):
+                 self.t_row_base, self.t_win_off, self.t_plan, self.n_cols,
+                 self.n_rows)):
             cols, vals, lrow, base, off = (
                 t.cpu().numpy() for t in (cols, vals, lrow, base, off))
+            heavy, parts, light = (t.cpu().numpy() for t in plan)
             nw = -(-n_rows // self.r)
             assert cols.shape == vals.shape == lrow.shape == (
                 base.shape[0], self.nb), name
@@ -120,3 +152,16 @@ class PanelAdj:
             rises[off[1:-1] * self.nb - 1] = True   # a new window starts
             assert rises.all(), \
                 f"{name}: local_row decreases inside a window"
+            slots = np.diff(off).astype(np.int64) * self.nb
+            assert np.array_equal(np.union1d(heavy, light), np.arange(nw)) \
+                and heavy.size + light.size == nw, \
+                f"{name}: the split plan must list every window once"
+            assert heavy.size == 0 or light.size == 0 \
+                or slots[heavy].min() > slots[light].max(), \
+                f"{name}: a light window holds as many slots as a heavy one"
+            assert parts.shape == (heavy.size, SPLIT_PARTS + 1) \
+                and (parts[:, 0] == 0).all() \
+                and (parts[:, -1] == slots[heavy]).all() \
+                and (np.diff(parts, axis=1) >= 0).all() \
+                and (parts[:, 1:-1] % 8 == 0).all(), \
+                f"{name}: heavy parts must tile each heavy window in order"

@@ -12,6 +12,8 @@ K1's products_bf16 at rtol and atol 2e-2, since a bf16 ulp can flip when the f32
 rounds are taken in another order.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.ops import panel_spmm as ps
 from gcn_tpu_torch.tile import panel_adjacency
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+from gcn_tpu_torch.tile.tiler import default_split_slots, split_plan
 
 
 @pytest.fixture
@@ -174,6 +177,15 @@ def _panel_graphs():
             ("rect", _rect_graph()), ("empty_window", gap)]
 
 
+def _panel_direction(adj, t):
+    """(arrays, n_in, n_out, plan) of the forward or the transpose."""
+    if t:
+        return ((adj.t_cols, adj.t_vals, adj.t_local_row, adj.t_row_base,
+                 adj.t_win_off), adj.n_rows, adj.n_cols, adj.t_plan)
+    return ((adj.cols, adj.vals, adj.local_row, adj.row_base, adj.win_off),
+            adj.n_cols, adj.n_rows, adj.plan)
+
+
 # k % 4 != 0 goes through the wrapper's zero-padded copy of x
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 48, 128])
@@ -182,17 +194,10 @@ def test_panel_kernel_matches_plain_on_card(cuda, k, r, nb):
     for name, g in _panel_graphs():
         adj = panel_adjacency(g, r=r, nb=nb, device=cuda)
         for t in (False, True):
-            if t:
-                arrays = (adj.t_cols, adj.t_vals, adj.t_local_row,
-                          adj.t_row_base, adj.t_win_off)
-                n_in, n_out = adj.n_rows, adj.n_cols
-            else:
-                arrays = (adj.cols, adj.vals, adj.local_row, adj.row_base,
-                          adj.win_off)
-                n_in, n_out = adj.n_cols, adj.n_rows
+            arrays, n_in, n_out, plan = _panel_direction(adj, t)
             x = torch.randn(n_in, k, device=cuda)
             before = ps.spmm_panel_launches
-            got = ps.panel_spmm(x, *arrays, adj.r, n_out)
+            got = ps.panel_spmm(x, *arrays, adj.r, n_out, plan)
             torch.cuda.synchronize()
             assert ps.spmm_panel_launches == before + 1, name
             want = ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out)
@@ -208,7 +213,7 @@ def test_panel_kernel_on_unaligned_x(cuda):
     x = torch.randn(adj.n_cols * k + 1, device=cuda)[1:].view(adj.n_cols, k)
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     arrays = (adj.cols, adj.vals, adj.local_row, adj.row_base, adj.win_off)
-    _close(ps.panel_spmm(x, *arrays, adj.r, adj.n_rows),
+    _close(ps.panel_spmm(x, *arrays, adj.r, adj.n_rows, adj.plan),
            ps._panel_spmm_plain(x, *arrays[:4], adj.r, adj.n_rows))
 
 
@@ -241,10 +246,193 @@ def test_panel_kernel_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         ps.panel_spmm(torch.randn(adj.n_cols, 8, device=cuda,
                                   dtype=torch.float64), *arrays, adj.r,
-                      adj.n_rows)
+                      adj.n_rows, adj.plan)
     with pytest.raises(ValueError, match="contiguous"):
         ps.panel_spmm(torch.randn(8, adj.n_cols, device=cuda).t(), *arrays,
-                      adj.r, adj.n_rows)
+                      adj.r, adj.n_rows, adj.plan)
     with pytest.raises(ValueError, match="windows"):
         ps.panel_spmm(torch.randn(adj.n_cols, 8, device=cuda), *arrays,
-                      adj.r, adj.n_rows + adj.r)
+                      adj.r, adj.n_rows + adj.r, adj.plan)
+
+
+def _ell_arrays(adj, t=False):
+    if t:
+        return (adj.t_cols, adj.t_vals, adj.t_win, adj.t_win_off,
+                adj.t_row_space)
+    return adj.cols, adj.vals, adj.win, adj.win_off, adj.row_space
+
+
+def _cap_graph(seed=0, n=1500, hub=383):
+    """Symmetric, degree-sorted: one hub of degree 384 (self loop
+    included), which the hub split cuts into chunks of exactly 64 slots
+    (16 pass-blocks of P = 4), and a sparse tail of one-block windows."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.zeros(hub, np.int64), rng.integers(1, n, 2000)])
+    dst = np.concatenate([np.arange(1, hub + 1), rng.integers(0, n, 2000)])
+    g = gcn_normalize(coo_to_csr(src, dst, None, (n, n)).symmetrize())
+    return g.permute(degree_sort_order(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,hub_split", [(8, True), (128, True), (8, False)])
+@pytest.mark.parametrize("option", [None, "table_bf16", "products_bf16"])
+def test_kernel_window_extents_on_card(cuda, r, hub_split, option):
+    """Windows at the 16-pass-block hub cap (and, without the hub split,
+    past it) beside windows of one pass-block, in every variant."""
+    g = _cap_graph()
+    adj = ell_adjacency(g, r=r, k_pad=32, hub_split=hub_split, device=cuda)
+    blocks = adj.win_off.diff()
+    assert int(blocks.min()) == 1
+    assert (int(blocks.max()) == adj.span_pass_limit if hub_split
+            else int(blocks.max()) > adj.span_pass_limit)
+    x = torch.randn(g.shape[0], 32, device=cuda)
+    opts = {option: True} if option else {}
+    arrays = _ell_arrays(adj)
+    got = es.ell_spmm(x, *arrays, **opts)
+    want = es.ell_spmm(x.cpu(), *(a.cpu() for a in arrays[:4]), arrays[4],
+                       **opts)
+    if option == "products_bf16":
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=2e-2)
+        assert _share_close(got.cpu(), want) >= 0.99
+    else:
+        _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_empty_windows_on_card(cuda):
+    """Windows that own no pass-block come out as zero rows."""
+    rng = np.random.default_rng(5)
+    per_window = np.array([2, 0, 1, 0, 3, 1, 0])
+    r, p, n_in = 8, 4, 50
+    nb = int(per_window.sum())
+    win_off = np.concatenate([[0], np.cumsum(per_window)]).astype(np.int32)
+    win = np.repeat(np.arange(per_window.size), per_window).astype(np.int32)
+    cols = rng.integers(0, n_in, (nb, p, r)).astype(np.int32)
+    vals = rng.random((nb, p, r)).astype(np.float32)
+    arrays = [torch.from_numpy(a) for a in (cols, vals, win, win_off)]
+    n_out = per_window.size * r - 3
+    x = torch.randn(n_in, 32)
+    want = es.ell_spmm(x, *arrays, n_out)
+    got = es.ell_spmm(x.to(cuda), *(a.to(cuda) for a in arrays), n_out)
+    assert not want[r:2 * r].any()
+    _close(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 32, 33, 128, 200])
+@pytest.mark.parametrize("view", ["contiguous", "unaligned", "stride_k_plus_1",
+                                  "stride_k_plus_4"])
+def test_kernel_widths_and_x_views_on_card(cuda, k, view):
+    """Every width through K1's column tiles, and x views that the vector
+    loads read in place (a row stride that is a multiple of 4) or that the
+    wrapper first copies (an unaligned base, a stride of k + 1)."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=128, k_pad=32, device=cuda)
+    n = g.shape[0]
+    if view == "contiguous":
+        x = torch.randn(n, k, device=cuda)
+    elif view == "unaligned":
+        x = torch.randn(n * k + 1, device=cuda)[1:].view(n, k)
+    else:
+        extra = 1 if view == "stride_k_plus_1" else 4
+        x = torch.randn(n, k + extra, device=cuda)[:, :k]
+    arrays = _ell_arrays(adj)
+    got = es.ell_spmm(x, *arrays)
+    want = es._ell_spmm_plain(x.contiguous(), *arrays)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_are_deterministic_on_card(cuda):
+    """Two calls of each kernel on the same inputs are bit-equal."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=128, k_pad=32, device=cuda)
+    x = torch.randn(g.shape[0], 64, device=cuda)
+    for opts in ({}, {"table_bf16": True}, {"products_bf16": True}):
+        a = es.ell_spmm(x, *_ell_arrays(adj), **opts)
+        b = es.ell_spmm(x, *_ell_arrays(adj), **opts)
+        assert torch.equal(a, b), opts
+    padj = _with_split(panel_adjacency(_split_graph(), device=cuda), 0)
+    arrays, n_in, n_out, plan = _panel_direction(padj, False)
+    assert plan[0].numel() > 0
+    x = torch.randn(n_in, 64, device=cuda)
+    a = ps.panel_spmm(x, *arrays, padj.r, n_out, plan)
+    b = ps.panel_spmm(x, *arrays, padj.r, n_out, plan)
+    assert torch.equal(a, b)
+
+
+def _split_graph(seed=4, n=3000):
+    """Degree-sorted powerlaw graph whose first window holds 85 of ~480
+    blocks: far past K2's split threshold."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum((rng.pareto(1.0, n) * 4 + 1).astype(np.int64), 1500)
+    deg[:3] = (1500, 900, 700)
+    src = np.repeat(np.arange(n), deg)
+    g = gcn_normalize(coo_to_csr(src, rng.integers(0, n, src.shape[0]),
+                                 None, (n, n)).symmetrize())
+    return g.permute(degree_sort_order(g))
+
+
+def _with_split(adj, split_slots):
+    """``adj`` with K2's split plan remade at ``split_slots`` slots (the
+    graph is symmetric: the transpose plan is the forward one)."""
+    plan = tuple(torch.from_numpy(a).to(adj.win_off.device) for a in
+                 split_plan(adj.win_off.cpu().numpy(), adj.nb, split_slots))
+    return dataclasses.replace(
+        adj, heavy=plan[0], heavy_parts=plan[1], light=plan[2],
+        t_heavy=plan[0], t_heavy_parts=plan[1], t_light=plan[2])
+
+
+def _split_features(adj):
+    """(runs crossing a part boundary, parts of padding only) over the
+    forward plan's heavy windows."""
+    off = adj.win_off.cpu().numpy()
+    lrow = adj.local_row.cpu().numpy().reshape(-1)
+    heavy, parts, _ = (t.cpu().numpy() for t in adj.plan)
+    cross = pad_only = 0
+    for h, w in enumerate(heavy):
+        s0 = int(off[w]) * adj.nb
+        for q in range(1, parts.shape[1] - 1):
+            b = s0 + parts[h, q]
+            cross += int(parts[h, q] < parts[h, -1]
+                         and lrow[b - 1] == lrow[b] < adj.r)
+        for q in range(parts.shape[1] - 1):
+            seg = lrow[s0 + parts[h, q]:s0 + parts[h, q + 1]]
+            pad_only += int(seg.size > 0 and (seg == adj.r).all())
+    return cross, pad_only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split_slots", [None, 0, 6000, 1 << 30])
+@pytest.mark.parametrize("k", [8, 32, 33, 128])
+def test_panel_split_windows_match_plain_on_card(cuda, split_slots, k):
+    """Heavy windows split across a cluster, beside light ones: every
+    window heavy (0; runs cross part boundaries, and some parts hold only
+    padding), a mix (6000), none (1 << 30) and the default threshold, the
+    per-SM mean of slots over the card's SMs."""
+    adj = panel_adjacency(_split_graph(), device=cuda)
+    if split_slots is not None:
+        adj = _with_split(adj, split_slots)
+    adj.validate()
+    n_heavy = adj.heavy.numel()
+    if split_slots == 0:
+        cross, pad_only = _split_features(adj)
+        assert n_heavy == adj.win_off.numel() - 1
+        assert cross > 0 and pad_only > 0
+    elif split_slots == 6000:
+        assert 0 < n_heavy < adj.win_off.numel() - 1
+    elif split_slots == 1 << 30:
+        assert n_heavy == 0
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        limit = default_split_slots(adj.win_off.cpu().numpy(), adj.nb, sms)
+        slots = adj.win_off.diff().cpu().numpy() * adj.nb
+        assert adj.heavy.tolist() == np.flatnonzero(slots > limit).tolist()
+        assert adj.heavy[0] == 0
+    arrays, n_in, n_out, plan = _panel_direction(adj, False)
+    x = torch.randn(n_in, k, device=cuda)
+    before = ps.spmm_panel_launches
+    got = ps.panel_spmm(x, *arrays, adj.r, n_out, plan)
+    torch.cuda.synchronize()
+    assert ps.spmm_panel_launches == before + 1
+    _close(got, ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out))

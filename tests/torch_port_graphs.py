@@ -3,6 +3,8 @@ seed and built by both packages, the branch cases of gcn_tpu's
 ``_spmm_ell_impl`` that the port's single kernel must cover, and the graphs
 of the panel (PanelAdj) tests."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from gcn_tpu_torch.graph.csr import coo_to_csr
 from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+from gcn_tpu_torch.tile.tiler import split_plan
 
 # f32 sums taken in another order than gcn_tpu's
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -156,14 +159,15 @@ def sbm_graph():
     return gcn_normalize(g), jx_normalize(jg)
 
 
-def powerlaw_graph(seed, n=3000):
-    """Pareto degrees, symmetric and normalized; the hubs pass NB = 512."""
+def powerlaw_graph(seed, n=3000, sort=False):
+    """Pareto degrees, symmetric and normalized; the hubs pass NB = 512.
+    ``sort`` orders the rows by degree, so the first windows are heavy."""
     rng = np.random.default_rng(seed)
     deg = np.minimum((rng.pareto(1.0, n) * 4 + 1).astype(np.int64), 1500)
     deg[:3] = (1500, 900, 700)
     src = np.repeat(np.arange(n), deg)
     return graphs(src, rng.integers(0, n, src.shape[0]), None, (n, n),
-                  symmetric=True)
+                  symmetric=True, sort=sort)
 
 
 def empty_window_graph(seed, n=400):
@@ -184,3 +188,17 @@ PANEL_GRAPHS = {
                                                 symmetric=True),
     "empty_window": lambda: empty_window_graph(24),
 }
+
+
+def with_split(adj, split_slots):
+    """``adj`` with K2's split plan remade at ``split_slots`` slots, to
+    force (0) or forbid (a huge value) the split of every window."""
+    def plan(win_off):
+        return tuple(torch.from_numpy(a).to(win_off.device) for a in
+                     split_plan(win_off.cpu().numpy(), adj.nb, split_slots))
+
+    fwd = plan(adj.win_off)
+    t = fwd if adj.symmetric else plan(adj.t_win_off)
+    return dataclasses.replace(
+        adj, heavy=fwd[0], heavy_parts=fwd[1], light=fwd[2], t_heavy=t[0],
+        t_heavy_parts=t[1], t_light=t[2])
