@@ -10,10 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gcn_tpu_torch.utils.device import resolve_device
 
-def params_from_numpy(params_np, device="cpu", dtype=torch.float32):
+
+def params_from_numpy(params_np, device=None, dtype=torch.float32):
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (copies; the arrays are not shared)."""
+    ``device``: the card by default (``utils.device.resolve_device``),
+    ``device="cpu"`` for the CPU (copies; the arrays are not shared)."""
+    device = resolve_device(device)
     out = {}
     for key, value in params_np.items():
         if isinstance(value, dict):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.graph.csr import CSRGraph
+from gcn_tpu_torch.utils.device import resolve_device
 
 # Pad edge counts to a multiple of this, as gcn_tpu does.
 EDGE_PAD = 1024
@@ -91,7 +92,10 @@ def _coo_arrays(g: CSRGraph, pad_to: Optional[int] = None):
 
 
 def coo_adjacency(g: CSRGraph, *, symmetric: Optional[bool] = None,
-                  device="cpu") -> CooAdj:
+                  device=None) -> CooAdj:
+    """Row-sorted COO on ``device``: the card by default
+    (``utils.device.resolve_device``), ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
     if symmetric is None:
         symmetric = g.shape[0] == g.shape[1] and g.is_symmetric()
     rows, cols, vals, e = _coo_arrays(g)
@@ -108,25 +112,28 @@ def coo_adjacency(g: CSRGraph, *, symmetric: Optional[bool] = None,
                   n_cols=g.shape[1], nnz=e, symmetric=bool(symmetric))
 
 
-def dense_adjacency(g: CSRGraph, device="cpu") -> DenseAdj:
+def dense_adjacency(g: CSRGraph, device=None) -> DenseAdj:
+    """The dense matrix on ``device`` (the card by default)."""
+    device = resolve_device(device)
     return DenseAdj(mat=torch.from_numpy(g.to_dense()).to(device),
                     nnz=g.nnz)
 
 
-def device_adjacency(g: CSRGraph, kind: str = "auto", device="cpu",
+def device_adjacency(g: CSRGraph, kind: str = "auto", device=None,
                      **kwargs):
-    """Lower a host CSRGraph to a device representation on ``device``.
+    """Lower a host CSRGraph to a device representation on ``device``: the
+    card by default (``utils.device.resolve_device``), ``device="cpu"`` for
+    the CPU.
 
     kind: "dense" | "coo" | "ell" | "auto" ("auto" picks dense up to an
     8192x8192-equivalent area, coo beyond it, as gcn_tpu does).
     """
     if kind == "auto":
         kind = "dense" if g.shape[0] * g.shape[1] <= 8192 ** 2 else "coo"
-    if kwargs.get("freq_split"):
+    if kwargs.pop("freq_split", False):
         raise NotImplementedError(
             "freq_split (the frequency-split ELL tables) is not ported yet; "
             "see ROADMAP.md")
-    kwargs.pop("freq_split", None)
     if kind == "dense":
         return dense_adjacency(g, device=device)
     if kind == "coo":

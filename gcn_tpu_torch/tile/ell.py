@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.graph.csr import CSRGraph
+from gcn_tpu_torch.utils.device import resolve_device
 
 DEFAULT_R = 128      # rows per output window
 DEFAULT_K_PAD = 32   # feature lanes per slot; P = 128 // k_pad slots/row
@@ -402,9 +403,10 @@ def ell_adjacency(
     table_bf16: bool = False,
     span_pass_limit: Optional[int] = None,
     hub_split: Optional[bool] = None,
-    device="cpu",
+    device=None,
 ) -> EllAdj:
-    """Tile a CSR graph into the EllAdj format on ``device``.
+    """Tile a CSR graph into the EllAdj format on ``device``: the card by
+    default (``utils.device.resolve_device``), ``device="cpu"`` for the CPU.
 
     Same arguments and defaults as ``gcn_tpu.tile.ell.ell_adjacency``
     (including the GCN_TPU_SPAN_LIMIT / GCN_TPU_HUB_SPLIT environment
@@ -412,6 +414,7 @@ def ell_adjacency(
     """
     assert r % 8 == 0, "row window must be a multiple of 8"
     assert k_pad in (8, 16, 32, 64, 128), "k_pad must divide 128"
+    device = resolve_device(device)
     if span_pass_limit is None:
         env = os.environ.get("GCN_TPU_SPAN_LIMIT")
         span_pass_limit = (int(env) if env is not None

@@ -83,7 +83,7 @@ def test_kernel_matches_plain_on_card(cuda, k, hub_split):
 def test_autograd_on_card_matches_cpu(cuda):
     """Forward and dX (transpose arrays of a non-symmetric matrix)."""
     g = _rect_graph()
-    adj = ell_adjacency(g, r=8, k_pad=32)
+    adj = ell_adjacency(g, r=8, k_pad=32, device="cpu")
     assert not adj.symmetric and adj.n_hub > 0
     x = torch.randn(g.shape[1], 16, requires_grad=True)
     ct = torch.randn(g.shape[0], 16)

@@ -128,7 +128,8 @@ def _ell_equal(ours, ref):
 def test_ell_adjacency_array_equal(pipelines, name, k_pad, hub_split):
     g, jg = pipelines[name]
     _csr_equal(g, jg)
-    ours = ell_adjacency(g, k_pad=k_pad, symmetric=True, hub_split=hub_split)
+    ours = ell_adjacency(g, k_pad=k_pad, symmetric=True, hub_split=hub_split,
+                         device="cpu")
     ref = jx_ell(jg, k_pad=k_pad, symmetric=True, hub_split=hub_split)
     _ell_equal(ours, ref)
     if name == POWERLAW and k_pad == 32:
@@ -155,7 +156,7 @@ def test_ell_adjacency_nonsymmetric_equal():
 
     g = coo_to_csr(src, dst, vals, (96, 256))
     jg = jx_coo(src, dst, vals, (96, 256))
-    ours = ell_adjacency(g, r=8, k_pad=32)
+    ours = ell_adjacency(g, r=8, k_pad=32, device="cpu")
     ref = jx_ell(jg, r=8, k_pad=32)
     assert not ours.symmetric and ours.n_hub > 0
     _ell_equal(ours, ref)
@@ -164,6 +165,50 @@ def test_ell_adjacency_nonsymmetric_equal():
 
 def test_ell_adjacency_device_move_keeps_aliases():
     g = gcn_normalize(get_dataset("synth-tiny", seed=0).adj)
-    adj = ell_adjacency(g, k_pad=32, symmetric=True)
+    adj = ell_adjacency(g, k_pad=32, symmetric=True, device="cpu")
     moved = adj.to(torch.device("cpu"))
     assert moved.t_cols is moved.cols and moved.t_win_off is moved.win_off
+
+
+def _default_device_builders():
+    """Each public layout builder and the weight carrier, called with no
+    device."""
+    from gcn_tpu_torch.convert import params_from_numpy
+    from gcn_tpu_torch.ops.adjacency import (coo_adjacency, dense_adjacency,
+                                             device_adjacency)
+
+    g = gcn_normalize(get_dataset("synth-tiny", seed=0).adj)
+    params = {"gc1": {"w": np.ones((3, 2), np.float32)}}
+    return {
+        "ell_adjacency": (lambda **d: ell_adjacency(g, **d),
+                          lambda a: a.cols),
+        "coo_adjacency": (lambda **d: coo_adjacency(g, **d),
+                          lambda a: a.rows),
+        "dense_adjacency": (lambda **d: dense_adjacency(g, **d),
+                            lambda a: a.mat),
+        "device_adjacency_ell": (lambda **d: device_adjacency(g, "ell", **d),
+                                 lambda a: a.cols),
+        "device_adjacency_coo": (lambda **d: device_adjacency(g, "coo", **d),
+                                 lambda a: a.rows),
+        "device_adjacency_dense": (
+            lambda **d: device_adjacency(g, "dense", **d), lambda a: a.mat),
+        "params_from_numpy": (lambda **d: params_from_numpy(params, **d),
+                              lambda p: p["gc1"]["w"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["ell_adjacency", "coo_adjacency",
+                                  "dense_adjacency", "device_adjacency_ell",
+                                  "device_adjacency_coo",
+                                  "device_adjacency_dense",
+                                  "params_from_numpy"])
+def test_builders_default_to_the_card(name):
+    """No device means the card: without a GPU each builder raises rather
+    than building on the CPU; ``device="cpu"`` builds on the CPU."""
+    build, tensor = _default_device_builders()[name]
+    if torch.cuda.is_available():
+        assert tensor(build()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert tensor(build(device="cpu")).device.type == "cpu"

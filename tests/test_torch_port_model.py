@@ -46,7 +46,8 @@ def test_v6_fit_matches_gcn_tpu(nhid):
 
     ours = GCN(nfeat, nhid, nclass, device="cpu", **kw)
     assert ours._orders() == ref._orders()
-    ours.params = params_from_numpy(_jax_params(3, nfeat, nhid, nclass))
+    ours.params = params_from_numpy(_jax_params(3, nfeat, nhid, nclass),
+                                    "cpu")
     pdata = get_dataset("synth-cora-hard", seed=0)
     ours.fit(pdata.features, pdata.adj, pdata.labels, pdata.idx_train,
              train_iters=20, initialize=False)
@@ -78,7 +79,7 @@ def test_val_modes_match_gcn_tpu(mode, lr, iters):
             idx_val=data.idx_val, **fit_kw)
     ours = GCN(data.num_features, 8, data.num_classes, device="cpu", **kw)
     ours.params = params_from_numpy(
-        _jax_params(5, data.num_features, 8, data.num_classes))
+        _jax_params(5, data.num_features, 8, data.num_classes), "cpu")
     pdata = get_dataset("synth-tiny", seed=1)
     ours.fit(pdata.features, pdata.adj, pdata.labels, pdata.idx_train,
              idx_val=pdata.idx_val, initialize=False, **fit_kw)
@@ -101,10 +102,11 @@ def test_checkpoints_interchange(tmp_path):
     jx_save_params(str(tmp_path / "jax.npz"), jparams)
     model = GCN(data.num_features, 8, data.num_classes, device="cpu")
     model.load(str(tmp_path / "jax.npz"))
-    adj = device_adjacency(gcn_normalize(data.adj), "dense")
+    adj = device_adjacency(gcn_normalize(data.adj), "dense", device="cpu")
     x = torch.tensor(data.features)
     got = gcn_forward(model.params, x, adj, train=False)
-    want = gcn_forward(params_from_numpy(jparams), x, adj, train=False)
+    want = gcn_forward(params_from_numpy(jparams, "cpu"), x, adj,
+                       train=False)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     model.save(str(tmp_path / "port"))

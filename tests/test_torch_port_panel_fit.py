@@ -86,7 +86,7 @@ def test_panel_fit_matches_gcn_tpu():
         return gcn_forward(p, feats, adj, orders=orders, dropout_rate=0.0,
                            train=train)
 
-    ours = fit_gcn(params_from_numpy(params), adam_l2, forward,
+    ours = fit_gcn(params_from_numpy(params, "cpu"), adam_l2, forward,
                    torch.tensor(data.labels[perm]), torch.tensor(idx),
                    train_iters=steps)
     assert ps.spmm_panel_launches == before  # the CPU runs the plain version

@@ -30,7 +30,8 @@ def test_dvals_matches_gcn_tpu_sddmm(hub):
     (the ELL SDDMM), slot for slot."""
     g, jg = (hub_graph(13) if hub
              else random_graph(14, symmetric=True, sort=True))
-    adj, jadj = ell_adjacency(g, r=8, k_pad=32), jx_ell(jg, r=8, k_pad=32)
+    adj = ell_adjacency(g, r=8, k_pad=32, device="cpu")
+    jadj = jx_ell(jg, r=8, k_pad=32)
     assert (adj.n_hub > 0) == hub
     rng = np.random.default_rng(1)
     x = rng.standard_normal((g.shape[0], 16)).astype(np.float32)
@@ -50,7 +51,7 @@ def test_dvals_not_computed_unless_asked(monkeypatch):
     monkeypatch.setattr(es, "_ell_sddmm",
                         lambda *a: called.append(1) or real(*a))
     g, _ = random_graph(15, symmetric=True, sort=True)
-    adj = ell_adjacency(g, r=8, k_pad=32)
+    adj = ell_adjacency(g, r=8, k_pad=32, device="cpu")
     x = torch.randn(g.shape[0], 8, requires_grad=True)
     es.spmm_ell(adj, x).sum().backward()
     assert not called and x.grad is not None
@@ -66,7 +67,7 @@ def test_dvals_not_computed_unless_asked(monkeypatch):
 def test_bf16_options_on_cpu_match_gcn_tpu(option, tol):
     g, jg = random_graph(16, symmetric=True, sort=True)
     kw = dict(r=8, k_pad=32, **{option: True})
-    out, dx, jout, jdx = fwd_bwd_pair(ell_adjacency(g, **kw),
+    out, dx, jout, jdx = fwd_bwd_pair(ell_adjacency(g, device="cpu", **kw),
                                       jx_ell(jg, **kw), 16)
     np.testing.assert_allclose(out, jout, rtol=tol, atol=tol)
     np.testing.assert_allclose(dx, jdx, rtol=tol, atol=tol)
@@ -76,7 +77,8 @@ def test_bf16_options_on_cpu_match_gcn_tpu(option, tol):
 def test_coo_and_dense_match_gcn_tpu(kind):
     """Forward, dX and (coo) the SDDMM dvals, on a non-symmetric graph."""
     g, jg = rect_graph(17, n=64, m=64, e=400)
-    adj, jadj = device_adjacency(g, kind), jx_device_adjacency(jg, kind)
+    adj = device_adjacency(g, kind, device="cpu")
+    jadj = jx_device_adjacency(jg, kind)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((64, 8)).astype(np.float32)
     ct = rng.standard_normal((64, 8)).astype(np.float32)
@@ -97,7 +99,7 @@ def test_coo_and_dense_match_gcn_tpu(kind):
 
 def test_hoist_spmm_matches_whole():
     g, _ = random_graph(18, symmetric=True, sort=True)
-    adj = ell_adjacency(g, r=8, k_pad=32)
+    adj = ell_adjacency(g, r=8, k_pad=32, device="cpu")
     x = torch.randn(g.shape[0], 80)
     np.testing.assert_allclose(hoist_spmm(adj, x).numpy(),
                                es.spmm_ell(adj, x).numpy(), rtol=1e-6,
@@ -106,7 +108,7 @@ def test_hoist_spmm_matches_whole():
 
 def test_spmm_shape_check_and_cpu_never_launches_kernel():
     g, _ = random_graph(19, symmetric=True, sort=True)
-    adj = ell_adjacency(g, r=8, k_pad=32)
+    adj = ell_adjacency(g, r=8, k_pad=32, device="cpu")
     with pytest.raises(ValueError, match="shape mismatch"):
         spmm(adj, torch.zeros(g.shape[0] + 1, 4))
     before = es.spmm_ell_launches
@@ -117,7 +119,7 @@ def test_spmm_shape_check_and_cpu_never_launches_kernel():
 def test_freq_split_not_ported_raises():
     g, _ = random_graph(20, symmetric=True, sort=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_adjacency(g, "ell", freq_split=True)
+        device_adjacency(g, "ell", device="cpu", freq_split=True)
 
 
 def test_failed_nvcc_build_raises(monkeypatch, tmp_path):
