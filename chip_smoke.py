@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py          # from the repository root; needs a GPU
 
-Drives the port's two paths on the card at synth-arxiv's full width
-(n=169,343, 128 features, hidden 32, 40 classes) — v6 GCN training through
-``gcn_tpu_torch.models.GCN`` over the ELL layout (kernel K1), and
+Drives the port's paths on the card — v6 GCN training through
+``gcn_tpu_torch.models.GCN`` over the ELL layout (kernel K1) at
+synth-arxiv's full width (n=169,343, 128 features, hidden 32, 40 classes),
 functional GCN training over the panel layout (``panel_adjacency``,
-``hoist_spmm``, ``gcn_forward``, ``fit_gcn``; kernel K2) — and holds every
-kernel against its plain PyTorch version. Phases (each failure exits
-non-zero):
+``hoist_spmm``, ``gcn_forward``, ``fit_gcn``; kernel K2), a resumed GCN
+run, GCN over the frequency-split tables, and HGNN training through
+``gcn_tpu_torch.models.HGNN`` at ModelNet40's shape on both forms of G (K1)
+— and holds every kernel against its plain PyTorch version. Phases (each
+failure exits non-zero):
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the repository's sources (nvcc, one process per
@@ -59,10 +61,34 @@ non-zero):
      loss falls, the output is finite and normalized, K2 ran 4 (hoist) + 2
      per step + 1 (eval) times and K1 none;
   9. where a v6 step's time goes: 10 more steps under torch.profiler, with
-     K1's device ms per step.
+     K1's device ms per step;
+ 10. resume: 10 v6 steps, ``save_state``, 10 more from it; the 20 losses
+     equal the main path's at rtol 1e-6;
+ 11. the frequency split on phase 3's graph with ``freq_split_order``
+     applied and hot_rows 32,768 forced (so a cold part exists):
+     ``spmm_ell_freq`` against single-table K1 at k=32 forward and dX at
+     the f32 tolerance, whether K1 reads the slices x[:H] and x[H:] in
+     place, a 5-step v6 fit with ``freq_split`` whose losses equal phase
+     6's at rtol 1e-4 and whose K1 launches equal 2 x (4 + 2 x 5 + 1), the
+     two-table time beside the single table's, and each part's K1 time;
+ 12. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
+     KNN-10 hypergraph on the first 64 feature columns, the host seconds
+     printed): K1 against its plain version in float64 on G (k_pad 128, P
+     = 1) at k=128 and k=40 and on each factor of G forward and through its
+     transpose arrays at k=128, the factored product against the chain at
+     rtol 1e-4; K1's time in those uses beside ``torch.sparse.mm`` and the
+     bound; 5 epochs card against CPU for both forms (losses at rtol
+     1e-4); the published recipe (n_hid 128, dropout 0.5, lr 1e-3, weight
+     decay 5e-4, milestones [100], gamma 0.9) for 200 epochs on each form,
+     where the loss falls, the output is finite, test accuracy is above
+     0.5, and K1's launches equal the count reckoned from the code
+     (``hgnn_launches``); and 10 + 10 epochs resumed across a milestone at
+     5 against 20 at rtol 1e-6.
 
-Then one JSON line per kernel (``{"kernels": [...]}``), the nvidia-smi
-line again, and last ``{"ok": true, "device": {...}}``. Without a GPU, or
+Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
+path's shape, K2, and K1 at HGNN's and the frequency split's shapes, each
+with the launches of the run that uses it), the nvidia-smi line again, and
+last ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository beside it, it exits non-zero and prints no result.
 """
 
@@ -283,14 +309,64 @@ def profile_steps(model, idx_train, steps):
         print(f"  {ms / steps:8.4f} ms/step  {name[:90]}")
 
 
-def k1_bound(adj, n_in, k):
+def k1_arrays(adj, t=False):
+    """(cols, vals, win, win_off, n_out, n_in) of one direction of an
+    EllAdj: the forward arrays, or (``t``) the transpose arrays."""
+    if t:
+        return (adj.t_cols, adj.t_vals, adj.t_win, adj.t_win_off,
+                adj.t_row_space, adj.n_rows)
+    return (adj.cols, adj.vals, adj.win, adj.win_off, adj.row_space,
+            adj.n_cols)
+
+
+def k1_bound(adj, k, t=False):
     """K1's least time at this run's inputs: cols + vals + win_off, x read
     once, out written once, over the HBM rate; 2 flop a stored edge and
     column over the f32 peak. Returns (ms, "bytes" | "operations")."""
-    bytes_moved = (adj.cols.numel() * 4 + adj.vals.numel() * 4
-                   + adj.win_off.numel() * 4 + n_in * k * 4
-                   + adj.row_space * k * 4)
+    cols, vals, _, win_off, n_out, n_in = k1_arrays(adj, t)
+    bytes_moved = (cols.numel() * 4 + vals.numel() * 4
+                   + win_off.numel() * 4 + n_in * k * 4 + n_out * k * 4)
     return bound(bytes_moved, 2 * adj.nnz * k)
+
+
+def csr_tensor(g, device):
+    """``g`` (a CSRGraph) as a torch sparse CSR tensor: the operand of
+    ``torch.sparse.mm``, the library yardstick."""
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, dtype=torch.int64),
+        torch.as_tensor(g.indices, dtype=torch.int64),
+        torch.as_tensor(g.data), size=g.shape, device=device)
+
+
+def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
+    """Time K1 on one direction of ``adj`` at x's width (CUDA events, the
+    chain behind a spin kernel), its plain version and ``torch.sparse.mm``
+    on ``csr``; print them beside the bound; return a ``kernels`` row
+    (``max_abs_err`` is filled in by the caller)."""
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+
+    cols, vals, win, win_off, n_out, n_in = k1_arrays(adj, t)
+    k = x.shape[1]
+    ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
+                                          n_out), x, n_in, reps)
+    plain_ms = time_chain(lambda v: es._ell_spmm_plain(
+        v, cols, vals, win, win_off, n_out), x, n_in, 3)
+    lib_ms = time_chain(lambda v: torch.sparse.mm(csr, v), x, n_in, reps)
+    print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} ms "
+          f"| torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
+    bound_ms, bound_by = k1_bound(adj, k, t)
+    print(f"  K1 at {100 * bound_ms / ms:.1f}% of the bound (by "
+          f"{bound_by})", flush=True)
+    return {"name": f"ell_spmm: {label}", "route": "cuda",
+            "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
+            "replaces": replaces, "launches": launches[0],
+            "launches_by_k": launches[1], "path": path,
+            "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def k2_bound(padj, n_in, k):
@@ -334,6 +410,388 @@ def panel_fit(params, feats, padj, labels, idx, steps, dropout, device):
 
     return fit_gcn(params, adam_l2, forward, labels, idx, train_iters=steps,
                    timers=Timers(device))
+
+
+K1_REPLACES = "gcn_tpu/ops/ell_spmm.py:55"
+HGNN_N = 12311          # ModelNet40's object count (pyhgnn config.yaml)
+HGNN_F = 2048           # its feature width (examples/bench_hgnn.py)
+HGNN_EPOCHS = 200       # across the milestone at 100
+HGNN_RECIPE = dict(n_hid=128, dropout=0.5, lr=1e-3, weight_decay=5e-4,
+                   milestones=[100], gamma=0.9)
+FREQ_HOT_ROWS = 32768   # forced below synth-arxiv's n, so a cold part exists
+
+
+def reset_launches():
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops import panel_spmm as ps
+
+    es.spmm_ell_launches = ps.spmm_panel_launches = 0
+    es.spmm_ell_launches_by_k.clear()
+
+
+def read_launches():
+    """(K1 launches, K1 launches by width) since ``reset_launches``."""
+    from gcn_tpu_torch.ops import ell_spmm as es
+
+    return es.spmm_ell_launches, dict(sorted(
+        es.spmm_ell_launches_by_k.items()))
+
+
+def hgnn_launches(adj, in_ch, epochs):
+    """K1 launches of an HGNN fit with validation, reckoned from the code:
+    the hoist (one SpMM a column chunk of ``k_pad``, 32 for a TwoHopAdj,
+    which has none), the row sum, per epoch the forward, dX and the
+    validation forward, and the final evaluation; a TwoHopAdj SpMM is two
+    launches."""
+    per_spmm = 2 if hasattr(adj, "a1") else 1
+    chunks = -(-in_ch // getattr(adj, "k_pad", 32))
+    return per_spmm * (chunks + 1 + 3 * epochs + 1)
+
+
+def losses_of(model):
+    return [h["loss_train"] for h in model.history]
+
+
+def check_close_losses(name, got, want, rtol):
+    import numpy as np
+
+    got, want = np.array(got), np.array(want)
+    if got.shape != want.shape:
+        fail(f"{name}: {got.size} losses against {want.size}")
+    diff = np.max(np.abs(got - want) / np.abs(want))
+    ok = np.allclose(got, want, rtol=rtol, atol=0)
+    print(f"  {name}: max rel diff {diff:.2e} (rtol {rtol:g}) -> "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name}: {got.tolist()} vs {want.tolist()}")
+
+
+def hgnn_phases(dev):
+    """HGNN at ModelNet40's shape (n = 12,311 objects, 2048 features, 40
+    classes; a KNN-10 hypergraph on the first 64 feature columns), both
+    forms of G: K1 against its plain version, K1's time, 5 epochs card
+    against CPU, the published recipe for 200 epochs with K1's launches
+    counted, and a resume across a milestone. Returns the ``kernels``
+    rows of K1 at HGNN's shapes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.data.synthetic import synthetic_visual_features
+    from gcn_tpu_torch.graph.hypergraph import (construct_H_with_KNN,
+                                                generate_G_factors,
+                                                generate_G_from_H)
+    from gcn_tpu_torch.models import HGNN
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
+
+    n, f, classes = HGNN_N, HGNN_F, 40
+    t0 = time.time()
+    fts, labels, idx_train, idx_test = synthetic_visual_features(
+        n=n, f=f, classes=classes, seed=SEED)
+    t_feat = time.time() - t0
+    t0 = time.time()
+    h = construct_H_with_KNN(fts[:, :64], k_neig=10, is_prob=True,
+                             m_prob=1.0)
+    t_h = time.time() - t0
+    t0 = time.time()
+    g = generate_G_from_H(h)
+    t_g = time.time() - t0
+    t0 = time.time()
+    a1, a2 = generate_G_factors(h)
+    t_fac = time.time() - t0
+    del h
+    print(f"[hgnn data] ModelNet40's shape: n={n} f={f} classes={classes}; "
+          f"G nnz={g.nnz}; A1 {a1.shape} nnz={a1.nnz}; A2 {a2.shape} "
+          f"nnz={a2.nnz}; host seconds: features {t_feat:.1f}, KNN H "
+          f"(n x n distances) {t_h:.1f}, G {t_g:.1f}, factors {t_fac:.1f}",
+          flush=True)
+    lowerer = HGNN(f, classes, device=dev, **HGNN_RECIPE)
+    t0 = time.time()
+    gadj = lowerer._lower(g)
+    t_tile_g = time.time() - t0
+    t0 = time.time()
+    fadj = TwoHopAdj(lowerer._lower(a1), lowerer._lower(a2))
+    t_tile_f = time.time() - t0
+    for label, a, secs in (("G", gadj, t_tile_g), ("A1", fadj.a1, t_tile_f),
+                           ("A2", fadj.a2, None)):
+        blocks = a.win_off.diff()
+        print(f"  {label}: {type(a).__name__} k_pad={a.k_pad} P={a.p} "
+              f"R={a.r} symmetric={a.symmetric} blocks={a.num_blocks} "
+              f"slots={a.cols.numel()} pad={a.pad_fraction:.3f} "
+              f"spans={len(a.spans)} chunks={len(a.chunks)} "
+              f"n_hub={a.n_hub} max blocks/window={int(blocks.max())}"
+              + (f" (tiled in {secs:.1f}s)" if secs is not None else ""),
+              flush=True)
+    if gadj.k_pad != 128 or gadj.p != 1:
+        fail("HGNN's G is not on the k_pad 128 (P = 1) layout")
+
+    def exact(a, x, t=False):
+        cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
+        return es._ell_spmm_plain(x.double(), cols, vals.double(), win,
+                                  win_off, n_out)
+
+    def k1(a, x, t=False):
+        cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
+        return es.ell_spmm(x, cols, vals, win, win_off, n_out)
+
+    print("[HGNN K1 vs plain] float64 plain version, f32 tolerance",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x128 = torch.randn(n, 128, device=dev, generator=gen)
+    x40 = torch.randn(n, 40, device=dev, generator=gen)
+    uses = (("G k=128 (P=1)", gadj, False, x128, g),
+            ("G k=40 (P=1)", gadj, False, x40, g),
+            ("A1 k=128", fadj.a1, False, x128, a1),
+            ("A1 transpose arrays k=128", fadj.a1, True, x128,
+             a1.transpose()),
+            ("A2 k=128", fadj.a2, False, x128, a2),
+            ("A2 transpose arrays k=128", fadj.a2, True, x128,
+             a2.transpose()))
+    errs = {label: compare(label, k1(a, x, t), exact(a, x, t))
+            for label, a, t, x, _ in uses}
+    compare("factored G (TwoHopAdj) vs the chain, k=128",
+            spmm(fadj, x128), spmm(gadj, x128), rtol=1e-4)
+    torch.cuda.synchronize()
+
+    print("[HGNN fit 5 epochs, dropout 0] card vs cpu, both forms of G",
+          flush=True)
+    p0 = params_to_numpy(HGNN(f, classes, seed=SEED,
+                              device="cpu").init_params())
+    forms = (("dense G", g), ("factored G", (a1, a2)))
+    for form, G in forms:
+        hist = {}
+        for device in (dev, "cpu"):
+            t0 = time.time()
+            m = HGNN(f, classes, device=device,
+                     **dict(HGNN_RECIPE, dropout=0.0))
+            m.params = params_from_numpy(p0, device)
+            m.fit(fts, G, labels, idx_train, idx_val=idx_test,
+                  num_epochs=5)
+            hist[device] = losses_of(m)
+            print(f"  {form} {device}: losses {hist[device]} "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+        check_close_losses(f"{form} card vs cpu", hist[dev], hist["cpu"],
+                           1e-4)
+
+    runs = {}
+    for form, G in forms:
+        print(f"[HGNN main path] {form}, {HGNN_EPOCHS} epochs, the published "
+              f"recipe {HGNN_RECIPE}, seed {SEED}", flush=True)
+        model = HGNN(f, classes, seed=SEED, device=dev, **HGNN_RECIPE)
+        t0 = time.time()
+        reset_launches()
+        model.fit(fts, G, labels, idx_train, idx_val=idx_test,
+                  num_epochs=HGNN_EPOCHS)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        fit_s = time.time() - t0
+        losses = losses_of(model)
+        acc = model.test(idx_test)
+        out = model.output
+        expected = hgnn_launches(model.g_adj, f, HGNN_EPOCHS)
+        print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; fit "
+              f"{fit_s:.2f}s (lowering G included); hoist "
+              f"{model.timers('hoist_gx').d.median_ms:.3f} ms; median epoch "
+              f"{model.median_epoch_ms:.3f} ms; best val accuracy "
+              f"{model.best_acc:.4f}; test accuracy {acc:.4f}", flush=True)
+        print(f"  K1 launches: {launches[0]} by width {launches[1]} "
+              f"(expected {expected} from the code)", flush=True)
+        if launches[0] != expected:
+            fail(f"HGNN {form}: K1 launched {launches[0]} times, expected "
+                 f"{expected}")
+        if not losses[-1] < losses[0]:
+            fail(f"HGNN {form}: loss did not fall")
+        if tuple(out.shape) != (n, classes) or not torch.isfinite(out).all():
+            fail(f"HGNN {form}: output shape {tuple(out.shape)} or values "
+                 f"not finite")
+        if not acc > 0.5:
+            fail(f"HGNN {form}: test accuracy {acc:.4f} is not above 0.5")
+        runs[form] = launches
+
+    print("[HGNN resume] dense G, 10 + save_state + 10 epochs against 20, "
+          "milestone at 5, dropout 0.5", flush=True)
+    kw = dict(HGNN_RECIPE, milestones=[5])
+    ref = HGNN(f, classes, seed=SEED, device=dev, **kw)
+    ref.fit(fts, g, labels, idx_train, num_epochs=20)
+    first = HGNN(f, classes, seed=SEED, device=dev, **kw)
+    first.fit(fts, g, labels, idx_train, num_epochs=10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hgnn_state")
+        first.save_state(path)
+        second = HGNN(f, classes, seed=SEED, device=dev, **kw)
+        second.fit(fts, g, labels, idx_train, num_epochs=10,
+                   resume_from=path)
+    check_close_losses("HGNN 10 + 10 vs 20", losses_of(first)
+                       + losses_of(second), losses_of(ref), 1e-6)
+    compare("HGNN resumed output vs uninterrupted", second.output,
+            ref.output)
+
+    g_layouts(dev, g, x128)
+    rows = []
+    for label, a, t, x, csr_g in uses:
+        form = "dense G" if a is gadj else "factored G"
+        row = k1_use(f"HGNN {label}", a, t, x, csr_tensor(csr_g, dev),
+                     runs[form], f"HGNN {form}, {HGNN_EPOCHS} epochs",
+                     K1_REPLACES)
+        row["max_abs_err"] = errs[label]
+        rows.append(row)
+    return rows
+
+
+def g_layouts(dev, g, x):
+    """A diagnostic, not a check: K1 on HGNN's G as ``HGNN._lower`` tiles
+    it (rows in the hypergraph's order) beside two layouts the model does
+    not build: G degree-sorted (padding cut, hub rows split, as GCN v6's
+    graph is) at k_pad 128 and at k_pad 32 (P = 4)."""
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+
+    gs = g.permute(degree_sort_order(g))
+    n = g.shape[0]
+    print("[HGNN G layouts] K1 alone at k=128 (a diagnostic)", flush=True)
+    for label, graph, k_pad in (("as HGNN lowers it", g, 128),
+                                ("degree-sorted", gs, 128),
+                                ("degree-sorted, k_pad 32", gs, 32)):
+        a = ell_adjacency(graph, k_pad=k_pad, device=dev)
+        cols, vals, win, win_off, n_out, _ = k1_arrays(a)
+        ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
+                                              n_out), x, n, 30)
+        print(f"  {label}: P={a.p} slots={a.cols.numel()} pad="
+              f"{a.pad_fraction:.3f} max blocks/window="
+              f"{int(win_off.diff().max())} n_hub={a.n_hub}: K1 {ms:.4f} ms",
+              flush=True)
+
+
+def freq_phases(dev, g, data, p0, ell_losses, adj):
+    """The frequency-split tables on synth-arxiv (rabbit and degree sort,
+    then ``freq_split_order``), with hot_rows 32768 forced so that a cold
+    part exists: against single-table K1 forward and backward, a 5-step v6
+    fit against the ELL path's, and its time beside the single table's,
+    on the same order and on ``adj`` (the main path's layout of ``g``).
+    Returns the ``kernels`` rows of K1 on the two parts."""
+    import scipy.sparse as sp
+    import torch
+
+    from gcn_tpu_torch.convert import params_from_numpy
+    from gcn_tpu_torch.graph.csr import CSRGraph
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops._align import aligned_rows
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+    from gcn_tpu_torch.tile.freq_split import (ell_adjacency_freq,
+                                               freq_split_order,
+                                               spmm_ell_freq)
+
+    hot_rows = FREQ_HOT_ROWS
+    t0 = time.time()
+    g = g.permute(freq_split_order(g, hot_rows=hot_rows))
+    fs = ell_adjacency_freq(g, hot_rows=hot_rows, k_pad=32, device=dev)
+    single = ell_adjacency(g, k_pad=32, symmetric=True, device=dev)
+    fs.validate()
+    n = g.shape[0]
+    print(f"[freq split] synth-arxiv, hot_rows={hot_rows}: hot part "
+          f"{fs.hot.shape} nnz={fs.hot.nnz} ({100 * fs.hot_edge_fraction:.1f}"
+          f"% of edges) blocks={fs.hot.num_blocks} pad="
+          f"{fs.hot.pad_fraction:.3f} n_hub={fs.hot.n_hub}; cold part "
+          f"{fs.cold.shape} nnz={fs.cold.nnz} blocks={fs.cold.num_blocks} "
+          f"pad={fs.cold.pad_fraction:.3f} n_hub={fs.cold.n_hub}; single "
+          f"table blocks={single.num_blocks} ({time.time() - t0:.1f}s)",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn(n, 32, device=dev, generator=gen)
+    ct = torch.randn(n, 32, device=dev, generator=gen)
+    for label, part in (("x[:H]", x[:hot_rows]), ("x[H:]", x[hot_rows:])):
+        xin, _ = aligned_rows(part, "K1")
+        how = "in place" if xin.data_ptr() == part.data_ptr() else "a copy"
+        print(f"  {label}: base {part.data_ptr() % 16} bytes past a 16-byte "
+              f"boundary, K1 reads it {how}", flush=True)
+    want = es.spmm_ell(single, x)
+    errs = [compare("spmm_ell_freq vs single-table K1, fwd k=32",
+                    spmm_ell_freq(fs, x), want),
+            compare("spmm_ell_freq fwd vs the float64 plain version",
+                    spmm_ell_freq(fs, x), es._hub_epilogue(
+                        es._ell_spmm_plain(x.double(), single.cols,
+                                           single.vals.double(), single.win,
+                                           single.win_off, single.row_space),
+                        single.virt_map, single.n_hub, n))]
+    xf = x.clone().requires_grad_(True)
+    spmm_ell_freq(fs, xf).backward(ct)
+    xs = x.clone().requires_grad_(True)
+    es.spmm_ell(single, xs).backward(ct)
+    errs.append(compare("spmm_ell_freq vs single-table K1, dX k=32",
+                        xf.grad, xs.grad))
+    torch.cuda.synchronize()
+
+    print("[freq split fit 5 steps, dropout 0] against the ELL path",
+          flush=True)
+    m = GCN(data.num_features, 32, data.num_classes, dropout=0.0,
+            variant="v6", seed=SEED, device=dev,
+            adj_options={"freq_split": True, "hot_rows": hot_rows})
+    m.params = params_from_numpy(p0, dev)
+    reset_launches()
+    m.fit(data.features, data.adj, data.labels, data.idx_train,
+          train_iters=5, initialize=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    parts = 2 * (-(-data.num_features // 32) + 2 * 5 + 1)
+    print(f"  losses {losses_of(m)}; K1 launches {launches[0]} by width "
+          f"{launches[1]} (expected {parts} = 2 parts x (4 hoist + 2 x 5 "
+          f"steps + 1 eval))", flush=True)
+    if type(m.adj_norm).__name__ != "FreqSplitAdj" or m.adj_norm.cold is None:
+        fail("the freq-split fit did not build two tables")
+    if launches[0] != parts:
+        fail(f"freq-split fit: {launches[0]} K1 launches, expected {parts}")
+    check_close_losses("freq-split vs ELL path", losses_of(m), ell_losses,
+                       1e-4)
+
+    freq_ms = time_chain(lambda v: spmm_ell_freq(fs, v), x, n, 30)
+    single_ms = time_chain(lambda v: es.spmm_ell(single, v), x, n, 30)
+    main_ms = time_chain(lambda v: es.spmm_ell(adj, v), x, n, 30)
+    print(f"[freq split timing] k=32: spmm_ell_freq {freq_ms:.4f} ms (two "
+          f"K1 launches, the sum) | single-table spmm_ell on the same order "
+          f"{single_ms:.4f} ms (n_hub={single.n_hub}) | on the main path's "
+          f"degree order {main_ms:.4f} ms (n_hub={adj.n_hub}; K1 + hub "
+          f"epilogue both)", flush=True)
+    full = sp.csr_matrix((g.data, g.indices, g.indptr), shape=g.shape)
+    rows = []
+    for label, part, lo, hi in (("hot", fs.hot, 0, hot_rows),
+                                ("cold", fs.cold, hot_rows, n)):
+        csr = csr_tensor(CSRGraph.from_scipy(full[:, lo:hi].tocsr()), dev)
+        row = k1_use(f"freq-split {label} part {part.shape} k=32", part,
+                     False, x[lo:hi].contiguous(), csr, launches,
+                     "GCN v6 with freq_split, synth-arxiv, 5 steps",
+                     K1_REPLACES)
+        row["max_abs_err"] = max(errs)
+        rows.append(row)
+    return rows
+
+
+def gcn_resume_phase(dev, data, uninterrupted):
+    """GCN v6 on synth-arxiv: 10 steps, ``save_state``, a resume of 10,
+    against the main path's uninterrupted 20 (dropout 0.5)."""
+    import tempfile
+
+    from gcn_tpu_torch.models import GCN
+
+    print("[GCN resume] v6 synth-arxiv, 10 + save_state + 10 steps against "
+          "the main path's 20, dropout 0.5", flush=True)
+    kw = dict(variant="v6", seed=SEED, device=dev)
+    first = GCN(data.num_features, 32, data.num_classes, **kw)
+    first.fit(data.features, data.adj, data.labels, data.idx_train,
+              train_iters=10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gcn_state")
+        first.save_state(path)
+        second = GCN(data.num_features, 32, data.num_classes, **kw)
+        second.fit(data.features, data.adj, data.labels, data.idx_train,
+                   train_iters=10, resume_from=path)
+    if second._iters_done != 20:
+        fail(f"resumed run reports {second._iters_done} iterations")
+    check_close_losses("GCN 10 + 10 vs 20", losses_of(first)
+                       + losses_of(second), uninterrupted, 1e-6)
 
 
 def main():
@@ -509,10 +967,7 @@ def main():
     print("[K1 timing] synth-arxiv forward, k=32", flush=True)
     k1_ms = time_chain(lambda x: k1(adj, x), x32, n, 30)
     plain_ms = time_chain(lambda x: plain(adj, x), x32, n, 5)
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(g.indptr, dtype=torch.int64),
-        torch.as_tensor(g.indices, dtype=torch.int64),
-        torch.as_tensor(g.data), size=g.shape, device=dev)
+    csr = csr_tensor(g, dev)
     lib_ms = time_chain(lambda x: torch.sparse.mm(csr, x), x32, n, 30)
     lib_diff = (es._hub_epilogue(k1(adj, x32), adj.virt_map, adj.n_hub, n)
                 - torch.sparse.mm(csr, x32)).abs().max().item()
@@ -529,7 +984,7 @@ def main():
         note = " (the cast of x included)" if option == "table_bf16" else ""
         print(f"  K1 {option} {ms:.4f} ms{note} | plain {pms:.4f} ms",
               flush=True)
-    bound_ms, bound_by = k1_bound(adj, n, 32)
+    bound_ms, bound_by = k1_bound(adj, 32)
     print(f"  K1 at {100 * bound_ms / k1_ms:.1f}% of the bound "
           f"(by {bound_by})", flush=True)
 
@@ -778,13 +1233,18 @@ def main():
 
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
+
+    # ---- 10.-12. resumable state, the frequency split, HGNN ---------------
+    gcn_resume_phase(dev, data, losses)
+    freq_rows = freq_phases(dev, g, data, p0, hist["cuda"], adj)
+    hgnn_rows = hgnn_phases(dev)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "ell_spmm",
         "route": "cuda",
         "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
-        "replaces": "gcn_tpu/ops/ell_spmm.py:55",
+        "replaces": K1_REPLACES,
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": k1_ms,
@@ -815,7 +1275,7 @@ def main():
         "heavy_ms": heavy_ms,
         "light_ms": light_ms,
         "heavy_windows": padj.heavy.numel(),
-    }]}))
+    }] + hgnn_rows + freq_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 ``get_dataset(name, seed=...)`` returns a ``GraphData`` bundle built by the
 seeded generators in ``gcn_tpu_torch.data.synthetic``; for the same seed it
-equals ``gcn_tpu.data.get_dataset`` bit for bit. The planetoid, GraphSAINT
-and ``.mat`` loaders are not ported yet (ROADMAP.md).
+equals ``gcn_tpu.data.get_dataset`` bit for bit. The HGNN ``.mat`` loader
+is ``data/hypergraph_mat.py``; the planetoid and GraphSAINT loaders are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

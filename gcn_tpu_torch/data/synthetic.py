@@ -6,6 +6,8 @@ the same seed gives bit-identical graphs, features and splits.
 
   * ``sbm``          — planted-partition stochastic block model.
   * ``powerlaw_sbm`` — degree-corrected SBM with Pareto degree weights.
+  * ``synthetic_visual_features`` — the HGNN stand-in for the
+    ModelNet40/NTU2012 visual features (examples/train_hgnn.py).
 """
 
 from __future__ import annotations
@@ -135,3 +137,19 @@ def split_indices(labels: np.ndarray, per_class_train: int = 20,
     return (np.array(train, dtype=np.int64),
             rest[:n_val].astype(np.int64),
             rest[n_val:n_val + n_test].astype(np.int64))
+
+
+def synthetic_visual_features(n: int = 800, f: int = 2048,
+                              classes: int = 40, seed: int = 0):
+    """A feature cloud shaped like the HGNN visual-object datasets: ``n``
+    objects of ``f`` features around one Gaussian centroid a class, ~80%
+    of them train. -> (features f32 (n, f), labels int64 (n,), idx_train,
+    idx_test); the same numpy calls as examples/train_hgnn.py, so equal
+    arrays for a seed."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n).astype(np.int64)
+    centroids = rng.standard_normal((classes, f)).astype(np.float32)
+    fts = centroids[labels] + 0.6 * rng.standard_normal((n, f)).astype(
+        np.float32)
+    idx = rng.random(n) < 0.8
+    return fts, labels, np.flatnonzero(idx), np.flatnonzero(~idx)

@@ -1,3 +1,4 @@
 from gcn_tpu_torch.models.gcn import GCN
+from gcn_tpu_torch.models.hgnn import HGNN
 
-__all__ = ["GCN"]
+__all__ = ["GCN", "HGNN"]

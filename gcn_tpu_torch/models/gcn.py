@@ -13,7 +13,10 @@ contraction order, adjacency representation and preprocessing:
 
 Everything runs on ``device``: the card (``cuda``) unless the caller passes
 ``device="cpu"``. ``predict()`` and ``output`` are always in the caller's
-original vertex order.
+original vertex order. ``save_state`` and ``fit(..., resume_from=path)``
+continue a run across processes and across the two packages
+(``utils.checkpoint``); ``adj_options={"freq_split": True}`` trains over the
+frequency-split tables (``tile/freq_split.py``).
 """
 
 from __future__ import annotations
@@ -146,6 +149,17 @@ class GCN:
             ds = degree_sort_order(g)
             g = g.permute(ds)
             perm = ds if perm is None else perm[ds]
+            if self.adj_options.get("freq_split"):
+                # part-aware order: each segment (hot prefix, cold tail)
+                # re-sorted by cold-part degree, composed into the chain
+                from gcn_tpu_torch.tile.freq_split import freq_split_order
+
+                po = freq_split_order(
+                    g, hot_rows=self.adj_options.get("hot_rows"),
+                    table_bf16=bool(self.adj_options.get("table_bf16")))
+                if po is not None:
+                    g = g.permute(po)
+                    perm = perm[po]
 
         kind = self.adj_kind
         kwargs = {}
@@ -175,10 +189,19 @@ class GCN:
             idx = self._inv_perm[idx]
         return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
 
+    def _adam_index(self) -> int:
+        """The adam stage's place in gcn_tpu's optax chain (``adam_l2``):
+        behind ``add_decayed_weights`` when there is weight decay."""
+        return 1 if self.weight_decay else 0
+
     def fit(self, features, adj, labels, idx_train, idx_val=None, *,
             train_iters: int = 200, initialize: bool = True,
             verbose: bool = False, normalize: bool = True,
-            patience: int = 500, mode: str = "auto"):
+            patience: int = 500, mode: str = "auto",
+            resume_from: Optional[str] = None):
+        """Train; ``resume_from`` continues from a ``save_state`` checkpoint
+        of either package (params, Adam state, iteration count and, from
+        this package on the same device type, the dropout stream)."""
         g = _as_csr(adj)
         x = _as_dense_features(features)
         labels_np = np.asarray(labels)
@@ -203,6 +226,23 @@ class GCN:
         if initialize or self.params is None:
             self.params = self.init_params()
         self._iters_done = 0
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        opt_state = None
+        if resume_from is not None:
+            from gcn_tpu_torch.utils.checkpoint import load_training_state
+
+            state = load_training_state(resume_from, self.params,
+                                        adam_index=self._adam_index())
+            self.params, opt_state = state.params, state.adam_state
+            self._iters_done = state.iteration
+            state.restore_generator(gen)
+            if mode not in ("auto", "no_val") or idx_val is not None:
+                import warnings
+
+                warnings.warn(
+                    "resume_from restores params/optimizer/rng but NOT the "
+                    "best-validation snapshot or patience counter: best-val "
+                    "tracking restarts at the resume point")
 
         orders = self._orders()
         feats = self.features
@@ -211,7 +251,6 @@ class GCN:
                 self._hoisted_ax = t.fence(hoist_spmm(self.adj_norm,
                                                       self.features))
             feats = self._hoisted_ax
-        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         adj_n = self.adj_norm
 
         def forward(p, train):
@@ -224,8 +263,12 @@ class GCN:
             self.params, lambda ps: adam_l2(ps, self.lr, self.weight_decay),
             forward, self.labels, idx_train, idx_val,
             train_iters=train_iters, mode=mode, patience=patience,
-            verbose=verbose, timers=self.timers)
+            verbose=verbose, timers=self.timers, opt_state=opt_state,
+            start_iter=self._iters_done, generator=gen)
         self.params = result.params
+        self.opt_state = result.opt_state
+        self._final_params = result.final_params
+        self._rng_state = result.rng_state
         self._iters_done += result.iters_run
         lp = result.log_probs
         if self.perm is not None:
@@ -258,6 +301,19 @@ class GCN:
         if perm is not None:
             lp = lp[torch.as_tensor(_inverse(perm), device=self.device)]
         return lp
+
+    def save_state(self, path: str) -> None:
+        """Save the full resumable training state (last-iterate params,
+        Adam state, iteration count, dropout stream) in gcn_tpu's layout;
+        continue with ``fit(..., resume_from=path)`` in either package."""
+        from gcn_tpu_torch.utils.checkpoint import save_training_state
+
+        if getattr(self, "opt_state", None) is None:
+            raise RuntimeError("nothing to save: call fit() first")
+        save_training_state(path, self._final_params, self.opt_state,
+                            self._iters_done, adam_index=self._adam_index(),
+                            rng_state=self._rng_state,
+                            rng_device=self.device.type)
 
     def save(self, path: str) -> None:
         """Save trained parameters (npz with gcn_tpu's keys)."""

@@ -8,7 +8,9 @@ training it is lowered onto a device as one of:
     ``index_add_`` (plain torch: in ``gcn_tpu`` this path is XLA, not a
     Pallas kernel).
   * ``EllAdj``   — the packed ELL layout of ``gcn_tpu_torch.tile.ell``,
-    whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``).
+    whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``);
+  * ``FreqSplitAdj`` — two such layouts, a hot column prefix and a cold
+    tail (``gcn_tpu_torch.tile.freq_split``), with ``freq_split=True``.
 
 The panel layout (``PanelAdj``, kernel K2) is built only by
 ``gcn_tpu_torch.tile.panel_adjacency``, as in ``gcn_tpu``.
@@ -127,18 +129,26 @@ def device_adjacency(g: CSRGraph, kind: str = "auto", device=None,
 
     kind: "dense" | "coo" | "ell" | "auto" ("auto" picks dense up to an
     8192x8192-equivalent area, coo beyond it, as gcn_tpu does).
+    ``freq_split=True`` (kind "ell" only) builds the frequency-split
+    two-table form (``tile/freq_split.py``); its parts are rectangular, so
+    the ``symmetric`` option does not apply to it.
     """
     if kind == "auto":
         kind = "dense" if g.shape[0] * g.shape[1] <= 8192 ** 2 else "coo"
-    if kwargs.pop("freq_split", False):
-        raise NotImplementedError(
-            "freq_split (the frequency-split ELL tables) is not ported yet; "
-            "see ROADMAP.md")
+    freq_split = kwargs.pop("freq_split", False)
+    if freq_split and kind != "ell":
+        raise ValueError(
+            f"freq_split requires kind='ell' (resolved kind is {kind!r})")
     if kind == "dense":
         return dense_adjacency(g, device=device)
     if kind == "coo":
         return coo_adjacency(g, device=device, **kwargs)
     if kind == "ell":
+        if freq_split:
+            from gcn_tpu_torch.tile.freq_split import ell_adjacency_freq
+
+            kwargs.pop("symmetric", None)
+            return ell_adjacency_freq(g, device=device, **kwargs)
         from gcn_tpu_torch.tile.ell import ell_adjacency
 
         return ell_adjacency(g, device=device, **kwargs)

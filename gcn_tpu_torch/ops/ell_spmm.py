@@ -38,8 +38,10 @@ import torch
 from gcn_tpu_torch.ops import _build
 from gcn_tpu_torch.ops._align import aligned_rows
 
-# kernel launches of K1; each launch adds one (read by chip_smoke.py)
+# kernel launches of K1; each launch adds one (read by chip_smoke.py), and
+# one to the count of its width k (x's column count)
 spmm_ell_launches = 0
+spmm_ell_launches_by_k = {}
 
 _lib = None
 
@@ -106,6 +108,7 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
     if rc != 0:
         raise RuntimeError(f"K1 (ell_spmm) launch failed: CUDA error {rc}")
     spmm_ell_launches += 1
+    spmm_ell_launches_by_k[k] = spmm_ell_launches_by_k.get(k, 0) + 1
     return out
 
 

@@ -6,12 +6,18 @@ One differentiable entry point, ``spmm(adj, x)``, for every representation:
   * ``CooAdj``   — gather + ``index_add_`` (``_SpmmCoo``), with the SDDMM
     edge-weight cotangent dvals[e] = <g[row_e], x[col_e]>;
   * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``);
-  * ``PanelAdj`` — kernel K2 (``ops/panel_spmm.py``).
+  * ``FreqSplitAdj`` — K1 on each of its two tables
+    (``tile/freq_split.py``);
+  * ``PanelAdj`` — kernel K2 (``ops/panel_spmm.py``);
+  * ``TwoHopAdj`` — a factored operator A1 @ A2, applied as
+    ``spmm(a1, spmm(a2, x))`` over any of the above.
 
 dX = A^T @ g always comes from the stored transpose arrays.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -45,6 +51,25 @@ class _SpmmCoo(torch.autograd.Function):
         return dx, dvals, None
 
 
+@dataclasses.dataclass(frozen=True)
+class TwoHopAdj:
+    """Factored operator A = A1 @ A2, applied as two SpMMs.
+
+    The hypergraph operator G factors as (Dv^-1/2 H W De^-1) @
+    (H^T Dv^-1/2) (``graph.hypergraph.generate_G_factors``): the factors
+    hold ~k entries a hyperedge where G holds ~k^2 a vertex. Each factor
+    may be any adjacency representation; rectangular ones carry their own
+    transpose arrays for the backward pass. It has no ``k_pad``, so
+    ``hoist_spmm`` takes it in 32-column chunks, as gcn_tpu does."""
+
+    a1: object
+    a2: object
+
+    @property
+    def shape(self):
+        return (self.a1.shape[0], self.a2.shape[1])
+
+
 def spmm(adj, x: torch.Tensor) -> torch.Tensor:
     """Differentiable sparse @ dense: returns ``A @ X`` of shape (m, k)."""
     shape = getattr(adj, "shape", None)
@@ -52,17 +77,24 @@ def spmm(adj, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"spmm shape mismatch: adjacency is {shape}, features have "
             f"{x.shape[0]} rows (expected {shape[1]})")
+    if isinstance(adj, TwoHopAdj):
+        return spmm(adj.a1, spmm(adj.a2, x))
     if isinstance(adj, DenseAdj):
         return torch.matmul(adj.mat, x)
     if isinstance(adj, CooAdj):
         return _SpmmCoo.apply(x, adj.vals, adj)
     from gcn_tpu_torch.tile.ell import EllAdj
     from gcn_tpu_torch.tile.format import PanelAdj
+    from gcn_tpu_torch.tile.freq_split import FreqSplitAdj
 
     if isinstance(adj, EllAdj):
         from gcn_tpu_torch.ops.ell_spmm import spmm_ell
 
         return spmm_ell(adj, x)
+    if isinstance(adj, FreqSplitAdj):
+        from gcn_tpu_torch.tile.freq_split import spmm_ell_freq
+
+        return spmm_ell_freq(adj, x)
     if isinstance(adj, PanelAdj):
         from gcn_tpu_torch.ops.panel_spmm import spmm_panel
 

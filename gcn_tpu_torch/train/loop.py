@@ -9,6 +9,10 @@
 A plain Python loop of eager steps (forward, loss, backward, Adam). The
 "step" device timer covers each step and restarts after the first
 ``WARMUP`` steps, the reference's convention (gcn5.py:273-291).
+
+A run resumes from a checkpoint (``utils.checkpoint``) with ``opt_state``,
+the Adam state it saved, and ``start_iter``, the updates already done;
+``TrainResult.opt_state`` is the state to save after the run.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from gcn_tpu_torch.train.metrics import accuracy, masked_nll
-from gcn_tpu_torch.utils.checkpoint import snapshot
+from gcn_tpu_torch.utils.checkpoint import named_leaves, snapshot
 from gcn_tpu_torch.utils.timers import Timers
 
 WARMUP = 10
@@ -34,6 +38,8 @@ class TrainResult:
     best_iter: int = -1
     final_params: dict = None  # last iterate
     iters_run: int = 0         # executed optimizer updates
+    opt_state: dict = None     # Adam state after the last update
+    rng_state: torch.Tensor = None  # the dropout generator's, likewise
 
 
 def fit_gcn(
@@ -49,7 +55,14 @@ def fit_gcn(
     patience: int = 500,
     verbose: bool = False,
     timers: Optional[Timers] = None,
+    opt_state: Optional[dict] = None,  # Adam state to resume from
+    start_iter: int = 0,               # updates done before this run
+    generator: Optional[torch.Generator] = None,  # the one ``forward``
+                                                  # draws dropout from
 ) -> TrainResult:
+    """Train ``params`` (a nested dict, copied) for ``train_iters`` steps.
+    ``history`` and ``best_iter`` count iterations from ``start_iter``;
+    ``rng_state`` is ``generator``'s state after the last step."""
     if mode == "auto":
         mode = "no_val" if idx_val is None else "val"
     if mode not in ("no_val", "val", "early_stop"):
@@ -60,8 +73,11 @@ def fit_gcn(
     params = {name: {k: t.detach().clone().requires_grad_(True)
                      for k, t in layer.items()}
               for name, layer in params.items()}
-    opt = make_optimizer([t for layer in params.values()
-                          for t in layer.values()])
+    opt = make_optimizer([t for _, t in named_leaves(params)])
+    if opt_state:
+        full = opt.state_dict()
+        full["state"] = opt_state
+        opt.load_state_dict(full)
 
     def eval_forward(p):
         with torch.no_grad():
@@ -83,7 +99,7 @@ def fit_gcn(
             loss.backward()
             opt.step()
             t.fence(loss)
-        rec = {"iter": i, "loss_train": float(loss.detach())}
+        rec = {"iter": start_iter + i, "loss_train": float(loss.detach())}
 
         if mode in ("val", "early_stop"):
             lp = eval_forward(params)
@@ -94,16 +110,16 @@ def fit_gcn(
                 if loss_val < best_loss_val:
                     best_loss_val = loss_val
                     best_params, best_lp = snapshot(params), lp
-                    best_iter = i
+                    best_iter = start_iter + i
                 if acc_val > best_acc_val:
                     best_acc_val = acc_val
                     best_params, best_lp = snapshot(params), lp
-                    best_iter = i
+                    best_iter = start_iter + i
             else:
                 if loss_val < best_loss_val:
                     best_loss_val = loss_val
                     best_params, best_lp = snapshot(params), lp
-                    best_iter = i
+                    best_iter = start_iter + i
                     patience_left = patience
                 else:
                     patience_left -= 1
@@ -122,10 +138,13 @@ def fit_gcn(
             print(msg)
 
     final = snapshot(params)
+    rng_state = generator.get_state() if generator is not None else None
     if mode == "no_val" or best_params is None:
         best_params = final
         best_lp = eval_forward(final)
-        best_iter = len(history) - 1
+        best_iter = start_iter + len(history) - 1
     return TrainResult(params=best_params, log_probs=best_lp, timers=timers,
                        history=history, best_iter=best_iter,
-                       final_params=final, iters_run=len(history))
+                       final_params=final, iters_run=len(history),
+                       opt_state=opt.state_dict()["state"],
+                       rng_state=rng_state)

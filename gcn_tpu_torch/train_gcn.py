@@ -3,10 +3,13 @@
 Usage:
     python -m gcn_tpu_torch.train_gcn -g synth-arxiv -k 32 -i 200 \
         --variant v6 [--reorder rabbit] [--adj coo|dense|ell|auto] \
-        [--table-bf16] [--products-bf16] [--device cuda|cpu]
+        [--table-bf16] [--products-bf16] [--freq-split] \
+        [--save-state PATH] [--resume-state PATH] [--device cuda|cpu]
 
 Prints the dataset line, the timing report and the final
-``Test set results: loss= … accuracy= …`` line. Runs on the card unless
+``Test set results: loss= … accuracy= …`` line. ``--save-state`` writes
+the resumable training state after the fit and ``--resume-state``
+continues from one (either package's). Runs on the card unless
 ``--device cpu`` is given.
 """
 
@@ -31,6 +34,14 @@ def main(argv=None):
                     help="ELL: gather x as bf16 rows, sum in f32")
     ap.add_argument("--products-bf16", action="store_true",
                     help="ELL: round each pass-block's sum to bf16")
+    ap.add_argument("--freq-split", action="store_true",
+                    help="ELL: frequency-split tables, a hot column prefix "
+                         "and a cold tail (tile/freq_split.py)")
+    ap.add_argument("--save-state", default=None,
+                    help="after fit, save the full resumable training "
+                         "state (params, optimizer, iteration, dropout)")
+    ap.add_argument("--resume-state", default=None,
+                    help="resume training from a --save-state checkpoint")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -55,6 +66,8 @@ def main(argv=None):
         adj_options["table_bf16"] = True
     if args.products_bf16:
         adj_options["products_bf16"] = True
+    if args.freq_split:
+        adj_options["freq_split"] = True
     model = GCN(data.num_features, args.hidden, data.num_classes,
                 variant=args.variant, adj_kind=args.adj,
                 reorder=args.reorder, seed=args.seed,
@@ -62,9 +75,13 @@ def main(argv=None):
     t0 = time.time()
     model.fit(data.features, data.adj, data.labels, data.idx_train,
               idx_val=data.idx_val if args.with_val else None,
-              train_iters=args.train_iters, verbose=True)
+              train_iters=args.train_iters, verbose=True,
+              resume_from=args.resume_state)
     print(f"fit done in {time.time()-t0:.2f}s "
           f"({model._iters_done} total iters)")
+    if args.save_state:
+        model.save_state(args.save_state)
+        print(f"training state saved to {args.save_state}")
     print(model.timers.report())
     return model.test(data.idx_test)
 

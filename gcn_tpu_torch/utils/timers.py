@@ -8,6 +8,8 @@ The port of ``gcn_tpu.utils.timers`` with the same surface:
     the CPU. ``t.fence(x)`` marks the region's result, as in gcn_tpu.
 
 Each timer also keeps its per-call samples, so a median can be read.
+``Marks`` stamps a loop's iterations on the device's stream without waiting
+for it, for loops that must not stop the host each iteration.
 """
 
 from __future__ import annotations
@@ -114,3 +116,32 @@ class Timers:
                 f"{name:<16}{max(h.count, d.count):>8}{h.total_ms:>12.3f}"
                 f"{h.avg_ms:>10.4f}{d.total_ms:>12.3f}{d.avg_ms:>10.4f}")
         return "\n".join(lines)
+
+
+class Marks:
+    """Time stamps between a loop's iterations: CUDA events on a CUDA
+    device, recorded on the current stream and read only after the loop
+    (one wait at the end instead of one an iteration), the host clock on
+    the CPU."""
+
+    def __init__(self, device):
+        self._cuda = torch.device(device).type == "cuda"
+        self._marks = []
+
+    def mark(self) -> None:
+        if self._cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self._marks.append(event)
+        else:
+            self._marks.append(time.perf_counter_ns())
+
+    def intervals_ms(self) -> List[float]:
+        """ms between consecutive marks (waits for the last one)."""
+        if len(self._marks) < 2:
+            return []
+        if self._cuda:
+            self._marks[-1].synchronize()
+            return [a.elapsed_time(b)
+                    for a, b in zip(self._marks, self._marks[1:])]
+        return [(b - a) / 1e6 for a, b in zip(self._marks, self._marks[1:])]

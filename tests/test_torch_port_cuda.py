@@ -8,8 +8,9 @@ that has only the port's dependencies:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
 Tolerance: f32 rtol 1e-5 and atol 1e-6 * max|out| (sums reassociated);
-K1's products_bf16 at rtol and atol 2e-2, since a bf16 ulp can flip when the f32 sums it
-rounds are taken in another order.
+fits card against CPU: losses at rtol 1e-4; K1's products_bf16 at rtol and
+atol 2e-2, since a bf16 ulp can flip when the f32 sums it rounds are taken
+in another order.
 """
 
 import dataclasses
@@ -436,3 +437,115 @@ def test_panel_split_windows_match_plain_on_card(cuda, split_slots, k):
     torch.cuda.synchronize()
     assert ps.spmm_panel_launches == before + 1
     _close(got, ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out))
+
+
+def _hypergraph(seed=6, n=600):
+    """The KNN hypergraph of a feature cloud: G (symmetric in exact
+    arithmetic) and its two factors, n x n_e and n_e x n, not symmetric."""
+    from gcn_tpu_torch.graph.hypergraph import (construct_H_with_KNN,
+                                                generate_G_factors,
+                                                generate_G_from_H)
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    h = construct_H_with_KNN(x, 10)
+    return generate_G_from_H(h), generate_G_factors(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, 40])
+def test_kernel_on_k_pad_128_layout_on_card(cuda, k):
+    """K1 on a P = 1 layout (k_pad 128, HGNN's G at n_hid 128), forward
+    and through the transpose arrays, against the plain version."""
+    g, _ = _hypergraph()
+    adj = ell_adjacency(g, k_pad=128, device=cuda)
+    assert adj.p == 1
+    for t in (False, True):
+        arrays = _ell_arrays(adj, t)
+        x = torch.randn(g.shape[0], k, device=cuda)
+        before = es.spmm_ell_launches
+        got = es.ell_spmm(x, *arrays)
+        torch.cuda.synchronize()
+        assert es.spmm_ell_launches == before + 1
+        _close(got, es._ell_spmm_plain(x, *arrays))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pad", [32, 128])
+def test_kernel_on_hypergraph_factors_on_card(cuda, k_pad):
+    """The two factors of G (rectangular in general, never symmetric):
+    forward and the transpose arrays, and TwoHopAdj through autograd,
+    card against CPU."""
+    from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
+
+    _, factors = _hypergraph()
+    adjs = [ell_adjacency(f, k_pad=k_pad, device="cpu") for f in factors]
+    for a in adjs:
+        assert not a.symmetric
+        ac = a.to(cuda)
+        for t in (False, True):
+            arrays = _ell_arrays(ac, t)
+            x = torch.randn(a.n_rows if t else a.n_cols, 128, device=cuda)
+            _close(es.ell_spmm(x, *arrays), es._ell_spmm_plain(x, *arrays))
+    two_hop = TwoHopAdj(*adjs)
+    x = torch.randn(two_hop.shape[1], 40, requires_grad=True)
+    ct = torch.randn(two_hop.shape[0], 40)
+    spmm(two_hop, x).backward(ct)
+    xc = x.detach().to(cuda).requires_grad_(True)
+    before = es.spmm_ell_launches
+    out = spmm(TwoHopAdj(*(a.to(cuda) for a in adjs)), xc)
+    out.backward(ct.to(cuda))
+    torch.cuda.synchronize()
+    assert es.spmm_ell_launches == before + 4
+    _close(xc.grad.cpu(), x.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33])
+def test_kernel_on_freq_split_parts_on_card(cuda, k):
+    """K1 on the hot and cold parts (rectangular, with transpose arrays)
+    through spmm_ell_freq, forward and dX, card against CPU; the slices
+    x[:H] and x[H:] are read in place or copied by the wrapper."""
+    from gcn_tpu_torch.tile.freq_split import (ell_adjacency_freq,
+                                               spmm_ell_freq)
+
+    g = _split_graph()
+    fs = ell_adjacency_freq(g, hot_rows=301, r=128, device="cpu")
+    assert fs.cold is not None
+    fs_c = ell_adjacency_freq(g, hot_rows=301, r=128, device=cuda)
+    x = torch.randn(g.shape[0], k, requires_grad=True)
+    ct = torch.randn(g.shape[0], k)
+    out = spmm_ell_freq(fs, x)
+    out.backward(ct)
+    xc = x.detach().to(cuda).requires_grad_(True)
+    before = es.spmm_ell_launches
+    out_c = spmm_ell_freq(fs_c, xc)
+    out_c.backward(ct.to(cuda))
+    torch.cuda.synchronize()
+    assert es.spmm_ell_launches == before + 4
+    _close(out_c.detach().cpu(), out.detach())
+    _close(xc.grad.cpu(), x.grad)
+
+
+@pytest.mark.cuda
+def test_hgnn_fit_on_card_matches_cpu(cuda):
+    """Three HGNN epochs over ELL-lowered G (k_pad 128) and its factors,
+    card against CPU from the same parameters (dropout 0)."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models import HGNN
+
+    g, factors = _hypergraph()
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((g.shape[0], 64)).astype(np.float32)
+    labels = rng.integers(0, 5, g.shape[0])
+    for G in (g, factors):
+        losses, p0 = [], None
+        for device in ("cpu", cuda):
+            m = HGNN(64, 5, n_hid=128, dropout=0.0, adj_kind="ell",
+                     milestones=(2,), device=device)
+            p0 = p0 if p0 is not None else params_to_numpy(m.init_params())
+            m.params = params_from_numpy(p0, device)
+            m.fit(x, G, labels, np.arange(400), idx_val=np.arange(400, 600),
+                  num_epochs=3)
+            losses.append([h["loss_train"] for h in m.history])
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

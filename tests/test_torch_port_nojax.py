@@ -1,5 +1,6 @@
-"""gcn_tpu_torch imports, trains, and runs the panel SpMM with jax and
-gcn_tpu blocked."""
+"""gcn_tpu_torch imports, trains GCN and HGNN (both forms of G), runs the
+panel and frequency-split SpMMs, and saves and resumes a training state,
+with jax and gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -36,6 +37,33 @@ spmm(adj, x).sum().backward()
 assert torch.allclose(x.grad.sum(dim=1),
                       torch.tensor(g.to_dense().sum(axis=0)) * x.shape[1],
                       rtol=1e-5, atol=1e-5)
+import numpy as np
+from gcn_tpu_torch.data.synthetic import synthetic_visual_features
+from gcn_tpu_torch.graph.hypergraph import (construct_H_with_KNN,
+                                            generate_G_factors,
+                                            generate_G_from_H)
+from gcn_tpu_torch.models import HGNN
+fts, labels, tr, te = synthetic_visual_features(n=120, f=32, classes=4)
+h = construct_H_with_KNN(fts[:, :16], 5)
+for G in (generate_G_from_H(h), generate_G_factors(h)):
+    hm = HGNN(32, 4, n_hid=16, adj_kind="ell", device="cpu")
+    hm.fit(fts, G, labels, tr, idx_val=te, num_epochs=3)
+    assert len(hm.history) == 3 and 0.0 <= hm.test(te) <= 1.0
+from gcn_tpu_torch.tile.freq_split import ell_adjacency_freq, spmm_ell_freq
+fsa = ell_adjacency_freq(g, hot_rows=64, r=16, device="cpu")
+xf = torch.tensor(data.features, requires_grad=True)
+spmm_ell_freq(fsa, xf).sum().backward()
+assert torch.allclose(xf.grad.sum(dim=1), x.grad.sum(dim=1), rtol=1e-4,
+                      atol=1e-4)
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "state")
+    m.save_state(path)
+    m2 = GCN(data.num_features, 8, data.num_classes, variant="v6",
+             device="cpu")
+    m2.fit(data.features, data.adj, data.labels, data.idx_train,
+           train_iters=2, resume_from=path)
+    assert m2._iters_done == 5
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)

@@ -117,9 +117,17 @@ def test_spmm_shape_check_and_cpu_never_launches_kernel():
 
 
 def test_freq_split_not_ported_raises():
+    """freq_split is ported: device_adjacency builds it for kind "ell" and,
+    as gcn_tpu does, raises ValueError for any other kind."""
+    from gcn_tpu_torch.tile.freq_split import FreqSplitAdj
+
     g, _ = random_graph(20, symmetric=True, sort=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_adjacency(g, "ell", device="cpu", freq_split=True)
+    adj = device_adjacency(g, "ell", device="cpu", freq_split=True,
+                           hot_rows=64, r=16)
+    assert isinstance(adj, FreqSplitAdj) and adj.cold is not None
+    for kind in ("coo", "dense"):
+        with pytest.raises(ValueError, match="freq_split requires"):
+            device_adjacency(g, kind, device="cpu", freq_split=True)
 
 
 def test_failed_nvcc_build_raises(monkeypatch, tmp_path):
