@@ -70,24 +70,29 @@ failure exits non-zero):
      the f32 tolerance, whether K1 reads the slices x[:H] and x[H:] in
      place, a 5-step v6 fit with ``freq_split`` whose losses equal phase
      6's at rtol 1e-4 and whose K1 launches equal 2 x (4 + 2 x 5 + 1), the
-     two-table time beside the single table's, and each part's K1 time;
+     two-table time beside the single table's, and each part alone, forward
+     and through its transpose arrays, against its float64 plain version,
+     with its K1 time;
  12. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
-     = 1) at k=128 and k=40 and on each factor of G forward and through its
-     transpose arrays at k=128, the factored product against the chain at
-     rtol 1e-4; K1's time in those uses beside ``torch.sparse.mm`` and the
-     bound; 5 epochs card against CPU for both forms (losses at rtol
-     1e-4); the published recipe (n_hid 128, dropout 0.5, lr 1e-3, weight
-     decay 5e-4, milestones [100], gamma 0.9) for 200 epochs on each form,
-     where the loss falls, the output is finite, test accuracy is above
-     0.5, and K1's launches equal the count reckoned from the code
-     (``hgnn_launches``); and 10 + 10 epochs resumed across a milestone at
-     5 against 20 at rtol 1e-6.
+     = 1) at k=128, 40 and 1 and on each factor of G forward and through
+     its transpose arrays at k=128, 40, 32 and 1, the factored product
+     against the chain at rtol 1e-4; K1's time beside ``torch.sparse.mm``
+     and the bound in every use the fits launch, at its width (the hoist,
+     each epoch, the row sum); 5 epochs card against CPU for both forms
+     (losses at rtol 1e-4); the published recipe (n_hid 128, dropout 0.5,
+     lr 1e-3, weight decay 5e-4, milestones [100], gamma 0.9) for 200
+     epochs on each form, where the loss falls, the output is finite, test
+     accuracy is above 0.5, and K1's launches equal the count reckoned from
+     the code (``hgnn_launches``); and 10 + 10 epochs resumed across a
+     milestone at 5 against 20 at rtol 1e-6.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2, and K1 at HGNN's and the frequency split's shapes, each
-with the launches of the run that uses it), the nvidia-smi line again, and
+with the launches at its width of the run that uses it; every bound counts
+8 B a stored edge, not the layout's padding slots, and the operator's own
+rows written), the nvidia-smi line again, and
 last ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository beside it, it exits non-zero and prints no result.
 """
@@ -319,14 +324,24 @@ def k1_arrays(adj, t=False):
             adj.n_cols)
 
 
-def k1_bound(adj, k, t=False):
-    """K1's least time at this run's inputs: cols + vals + win_off, x read
-    once, out written once, over the HBM rate; 2 flop a stored edge and
+def spmm_bound(nnz, win_off, n_in, n_out, k):
+    """The least time of an SpMM over ``nnz`` stored edges at this run's
+    inputs: 8 B an edge (its column and value; padding slots are layout,
+    not work), ``win_off``, x's ``n_in`` rows read once and the operator's
+    ``n_out`` rows written once, over the HBM rate; 2 flop an edge and
     column over the f32 peak. Returns (ms, "bytes" | "operations")."""
-    cols, vals, _, win_off, n_out, n_in = k1_arrays(adj, t)
-    bytes_moved = (cols.numel() * 4 + vals.numel() * 4
-                   + win_off.numel() * 4 + n_in * k * 4 + n_out * k * 4)
-    return bound(bytes_moved, 2 * adj.nnz * k)
+    bytes_moved = (nnz * 8 + win_off.numel() * 4 + n_in * k * 4
+                   + n_out * k * 4)
+    return bound(bytes_moved, 2 * nnz * k)
+
+
+def k1_bound(adj, k, t=False):
+    """K1's least time on one direction of ``adj`` at width ``k``: the
+    SpMM's bound over the operator's own rows (not its virtual hub
+    rows)."""
+    win_off = adj.t_win_off if t else adj.win_off
+    n_out, n_in = (adj.n_cols, adj.n_rows) if t else (adj.n_rows, adj.n_cols)
+    return spmm_bound(adj.nnz, win_off, n_in, n_out, k)
 
 
 def csr_tensor(g, device):
@@ -343,8 +358,10 @@ def csr_tensor(g, device):
 def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
     """Time K1 on one direction of ``adj`` at x's width (CUDA events, the
     chain behind a spin kernel), its plain version and ``torch.sparse.mm``
-    on ``csr``; print them beside the bound; return a ``kernels`` row
-    (``max_abs_err`` is filled in by the caller)."""
+    on ``csr``; print them beside the bound; return a ``kernels`` row whose
+    ``launches`` are the run's K1 launches at that width (``launches`` is
+    ``read_launches()`` of the run on ``path``; ``max_abs_err`` is filled
+    in by the caller)."""
     import torch
 
     from gcn_tpu_torch.ops import ell_spmm as es
@@ -363,19 +380,16 @@ def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
           f"{bound_by})", flush=True)
     return {"name": f"ell_spmm: {label}", "route": "cuda",
             "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
-            "replaces": replaces, "launches": launches[0],
+            "replaces": replaces, "launches": launches[1].get(k, 0),
             "launches_by_k": launches[1], "path": path,
             "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def k2_bound(padj, n_in, k):
-    """K2's least time at this run's inputs: cols + vals + local_row (12 B a
-    slot) + win_off, x read once, out written once; 2 flop a stored edge and
-    column."""
-    bytes_moved = (padj.cols.numel() * 12 + padj.win_off.numel() * 4
-                   + n_in * k * 4 + padj.n_rows * k * 4)
-    return bound(bytes_moved, 2 * padj.nnz * k)
+    """K2's least time at this run's inputs: the SpMM's bound (its
+    ``local_row`` array and padding slots are layout, not work)."""
+    return spmm_bound(padj.nnz, padj.win_off, n_in, padj.n_rows, k)
 
 
 def bound(bytes_moved, flops):
@@ -537,23 +551,30 @@ def hgnn_phases(dev):
         cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
         return es.ell_spmm(x, cols, vals, win, win_off, n_out)
 
-    print("[HGNN K1 vs plain] float64 plain version, f32 tolerance",
-          flush=True)
+    if a1.shape != (n, n) or a2.shape != (n, n):
+        fail("the KNN hypergraph has not one hyperedge a vertex")
+    print("[HGNN K1 vs plain] float64 plain version, f32 tolerance; G is "
+          "symmetric (its transpose arrays are its own)", flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    x128 = torch.randn(n, 128, device=dev, generator=gen)
-    x40 = torch.randn(n, 40, device=dev, generator=gen)
-    uses = (("G k=128 (P=1)", gadj, False, x128, g),
-            ("G k=40 (P=1)", gadj, False, x40, g),
-            ("A1 k=128", fadj.a1, False, x128, a1),
-            ("A1 transpose arrays k=128", fadj.a1, True, x128,
-             a1.transpose()),
-            ("A2 k=128", fadj.a2, False, x128, a2),
-            ("A2 transpose arrays k=128", fadj.a2, True, x128,
-             a2.transpose()))
-    errs = {label: compare(label, k1(a, x, t), exact(a, x, t))
-            for label, a, t, x, _ in uses}
-    compare("factored G (TwoHopAdj) vs the chain, k=128",
-            spmm(fadj, x128), spmm(gadj, x128), rtol=1e-4)
+    xs = {k: torch.randn(n, k, device=dev, generator=gen)
+          for k in (128, 40, 32, 1)}
+    # every direction and width the fits launch K1 at (the hoist: G at 128,
+    # each factor at 32; each epoch at 40, the factors' dX through their
+    # transpose arrays; the row sum at 1), and the factors at 128
+    operands = {"G": (gadj, False, g), "A1": (fadj.a1, False, a1),
+                "A1 transpose arrays": (fadj.a1, True, a1.transpose()),
+                "A2": (fadj.a2, False, a2),
+                "A2 transpose arrays": (fadj.a2, True, a2.transpose())}
+    checks = [("G", k) for k in (128, 40, 1)] + [
+        (name, k) for name in list(operands)[1:] for k in (128, 40, 32, 1)]
+    errs = {}
+    for name, k in checks:
+        a, t, _ = operands[name]
+        errs[name, k] = compare(f"{name} k={k}", k1(a, xs[k], t),
+                                exact(a, xs[k], t))
+    for k in (128, 40):
+        compare(f"factored G (TwoHopAdj) vs the chain, k={k}",
+                spmm(fadj, xs[k]), spmm(gadj, xs[k]), rtol=1e-4)
     torch.cuda.synchronize()
 
     print("[HGNN fit 5 epochs, dropout 0] card vs cpu, both forms of G",
@@ -629,40 +650,27 @@ def hgnn_phases(dev):
     compare("HGNN resumed output vs uninterrupted", second.output,
             ref.output)
 
-    g_layouts(dev, g, x128)
+    # K1's time in the uses the fits launch, at the widths they launch
+    uses = (("G", 128, "dense G", "the hoist"),
+            ("G", 40, "dense G", "each epoch: forward, dX, validation"),
+            ("G", 1, "dense G", "the row sum"),
+            ("A2", 32, "factored G", "the hoist"),
+            ("A1", 32, "factored G", "the hoist"),
+            ("A2", 40, "factored G", "each epoch: forward, validation"),
+            ("A1", 40, "factored G", "each epoch: forward, validation"),
+            ("A1 transpose arrays", 40, "factored G", "each epoch: dX"),
+            ("A2 transpose arrays", 40, "factored G", "each epoch: dX"),
+            ("A2", 1, "factored G", "the row sum"),
+            ("A1", 1, "factored G", "the row sum"))
     rows = []
-    for label, a, t, x, csr_g in uses:
-        form = "dense G" if a is gadj else "factored G"
-        row = k1_use(f"HGNN {label}", a, t, x, csr_tensor(csr_g, dev),
-                     runs[form], f"HGNN {form}, {HGNN_EPOCHS} epochs",
-                     K1_REPLACES)
-        row["max_abs_err"] = errs[label]
+    for name, k, form, use in uses:
+        a, t, csr_g = operands[name]
+        row = k1_use(f"HGNN {name} k={k} ({use})", a, t, xs[k],
+                     csr_tensor(csr_g, dev), runs[form],
+                     f"HGNN {form}, {HGNN_EPOCHS} epochs", K1_REPLACES)
+        row["max_abs_err"] = errs[name, k]
         rows.append(row)
     return rows
-
-
-def g_layouts(dev, g, x):
-    """A diagnostic, not a check: K1 on HGNN's G as ``HGNN._lower`` tiles
-    it (rows in the hypergraph's order) beside two layouts the model does
-    not build: G degree-sorted (padding cut, hub rows split, as GCN v6's
-    graph is) at k_pad 128 and at k_pad 32 (P = 4)."""
-    from gcn_tpu_torch.ops import ell_spmm as es
-    from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
-
-    gs = g.permute(degree_sort_order(g))
-    n = g.shape[0]
-    print("[HGNN G layouts] K1 alone at k=128 (a diagnostic)", flush=True)
-    for label, graph, k_pad in (("as HGNN lowers it", g, 128),
-                                ("degree-sorted", gs, 128),
-                                ("degree-sorted, k_pad 32", gs, 32)):
-        a = ell_adjacency(graph, k_pad=k_pad, device=dev)
-        cols, vals, win, win_off, n_out, _ = k1_arrays(a)
-        ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
-                                              n_out), x, n, 30)
-        print(f"  {label}: P={a.p} slots={a.cols.numel()} pad="
-              f"{a.pad_fraction:.3f} max blocks/window="
-              f"{int(win_off.diff().max())} n_hub={a.n_hub}: K1 {ms:.4f} ms",
-              flush=True)
 
 
 def freq_phases(dev, g, data, p0, ell_losses, adj):
@@ -708,21 +716,19 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
         how = "in place" if xin.data_ptr() == part.data_ptr() else "a copy"
         print(f"  {label}: base {part.data_ptr() % 16} bytes past a 16-byte "
               f"boundary, K1 reads it {how}", flush=True)
-    want = es.spmm_ell(single, x)
-    errs = [compare("spmm_ell_freq vs single-table K1, fwd k=32",
-                    spmm_ell_freq(fs, x), want),
-            compare("spmm_ell_freq fwd vs the float64 plain version",
-                    spmm_ell_freq(fs, x), es._hub_epilogue(
-                        es._ell_spmm_plain(x.double(), single.cols,
-                                           single.vals.double(), single.win,
-                                           single.win_off, single.row_space),
-                        single.virt_map, single.n_hub, n))]
+    compare("spmm_ell_freq vs single-table K1, fwd k=32",
+            spmm_ell_freq(fs, x), es.spmm_ell(single, x))
+    compare("spmm_ell_freq fwd vs the float64 plain version",
+            spmm_ell_freq(fs, x), es._hub_epilogue(
+                es._ell_spmm_plain(x.double(), single.cols,
+                                   single.vals.double(), single.win,
+                                   single.win_off, single.row_space),
+                single.virt_map, single.n_hub, n))
     xf = x.clone().requires_grad_(True)
     spmm_ell_freq(fs, xf).backward(ct)
     xs = x.clone().requires_grad_(True)
     es.spmm_ell(single, xs).backward(ct)
-    errs.append(compare("spmm_ell_freq vs single-table K1, dX k=32",
-                        xf.grad, xs.grad))
+    compare("spmm_ell_freq vs single-table K1, dX k=32", xf.grad, xs.grad)
     torch.cuda.synchronize()
 
     print("[freq split fit 5 steps, dropout 0] against the ELL path",
@@ -759,12 +765,23 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
     rows = []
     for label, part, lo, hi in (("hot", fs.hot, 0, hot_rows),
                                 ("cold", fs.cold, hot_rows, n)):
+        # the part alone: forward on x[lo:hi], dX through its transpose
+        # arrays, each against its float64 plain version
+        part_err = 0.0
+        for t, xin in ((False, x[lo:hi]), (True, ct)):
+            cols, vals, win, win_off, n_out, _ = k1_arrays(part, t)
+            part_err = max(part_err, compare(
+                f"{label} part {'transpose arrays' if t else 'fwd'} k=32, "
+                f"K1 vs plain", es.ell_spmm(xin, cols, vals, win, win_off,
+                                            n_out),
+                es._ell_spmm_plain(xin.double(), cols, vals.double(), win,
+                                   win_off, n_out)))
         csr = csr_tensor(CSRGraph.from_scipy(full[:, lo:hi].tocsr()), dev)
         row = k1_use(f"freq-split {label} part {part.shape} k=32", part,
                      False, x[lo:hi].contiguous(), csr, launches,
                      "GCN v6 with freq_split, synth-arxiv, 5 steps",
                      K1_REPLACES)
-        row["max_abs_err"] = max(errs)
+        row["max_abs_err"] = part_err
         rows.append(row)
     return rows
 

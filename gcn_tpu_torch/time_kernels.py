@@ -23,6 +23,17 @@ K1 is called through ``ell_spmm`` on the forward arrays, K2 through
 ``spmm_panel`` (its differentiable entry, under ``no_grad``), whose
 signatures every version of the package shares. Prints one JSON line per
 ROOT, then the card's name and power limit.
+
+    python3 gcn_tpu_torch/time_kernels.py --hgnn-layouts
+
+times K1 alone at k=128 on HGNN's G at ModelNet40's shape, built as
+``chip_smoke.py`` builds it (n=12,311, 2048 features, seed 15; a KNN-10
+hypergraph on the first 64 feature columns), in three layouts: as
+``HGNN._lower`` tiles it (rows in the hypergraph's order, k_pad 128), and two
+the model does not build: G degree-sorted (padding cut, hub rows split, as
+GCN v6's graph is) at k_pad 128 and at k_pad 32, beside ``torch.sparse.mm``
+on the same CSR. Prints one line per layout, then the card's name and power
+limit.
 """
 
 import json
@@ -104,11 +115,54 @@ def time_root(root):
     print(json.dumps(result), flush=True)
 
 
+def hgnn_layouts():
+    """K1 at k=128 on HGNN's G in three layouts (the module docstring)."""
+    sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from gcn_tpu_torch.data.synthetic import synthetic_visual_features
+    from gcn_tpu_torch.graph.hypergraph import (construct_H_with_KNN,
+                                                generate_G_from_H)
+    from gcn_tpu_torch.ops import _build
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+
+    _build.build_cuda_kernels()
+    dev = torch.device("cuda")
+    fts = synthetic_visual_features(n=12311, f=2048, classes=40,
+                                    seed=SEED)[0]
+    g = generate_G_from_H(construct_H_with_KNN(fts[:, :64], k_neig=10,
+                                               is_prob=True, m_prob=1.0))
+    gs = g.permute(degree_sort_order(g))
+    n = g.shape[0]
+    x = torch.randn(n, 128, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, dtype=torch.int64),
+        torch.as_tensor(g.indices, dtype=torch.int64),
+        torch.as_tensor(g.data), size=g.shape, device=dev)
+    print(f"HGNN G, n={n} nnz={g.nnz}, k=128: torch.sparse.mm (CSR) "
+          f"{chain(lambda v: torch.sparse.mm(csr, v), x, REPS, True):.4f} "
+          f"ms", flush=True)
+    for label, graph, k_pad in (("as HGNN lowers it", g, 128),
+                                ("degree-sorted", gs, 128),
+                                ("degree-sorted, k_pad 32", gs, 32)):
+        a = ell_adjacency(graph, k_pad=k_pad, device=dev)
+        ms = chain(lambda v: es.ell_spmm(v, a.cols, a.vals, a.win,
+                                         a.win_off, a.row_space),
+                   x, REPS, True)
+        print(f"  {label}: P={a.p} slots={a.cols.numel()} pad="
+              f"{a.pad_fraction:.3f} max blocks/window="
+              f"{int(a.win_off.diff().max())} n_hub={a.n_hub}: K1 "
+              f"{ms:.4f} ms", flush=True)
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == "--one":
         time_root(os.path.abspath(argv[1]))
         return 0
-    if not argv or argv[0].startswith("-"):
+    layouts = argv == ["--hgnn-layouts"]
+    if not layouts and (not argv or argv[0].startswith("-")):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -116,9 +170,12 @@ def main(argv):
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device is available", file=sys.stderr)
         return 2
-    for root in argv:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        root], check=True, timeout=900)
+    if layouts:
+        hgnn_layouts()
+    else:
+        for root in argv:
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--one", root], check=True, timeout=900)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

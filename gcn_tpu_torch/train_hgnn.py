@@ -94,6 +94,7 @@ def main(argv=None):
                                        is_prob=cfg["is_probH"],
                                        m_prob=cfg["m_prob"])
             h = tmp if h is None else np.hstack([h, tmp])
+        dataset = "synthetic"
     g = generate_G_factors(h) if args.factored else generate_G_from_H(h)
     n_class = int(labels.max()) + 1
     print(f"[{dataset}] n={fts.shape[0]} f={fts.shape[1]} classes={n_class} "

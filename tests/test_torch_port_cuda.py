@@ -453,10 +453,11 @@ def _hypergraph(seed=6, n=600):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [128, 40])
+@pytest.mark.parametrize("k", [128, 40, 1])
 def test_kernel_on_k_pad_128_layout_on_card(cuda, k):
     """K1 on a P = 1 layout (k_pad 128, HGNN's G at n_hid 128), forward
-    and through the transpose arrays, against the plain version."""
+    and through the transpose arrays, against the plain version, at the
+    widths HGNN launches it: the hoist, each epoch, the row sum."""
     g, _ = _hypergraph()
     adj = ell_adjacency(g, k_pad=128, device=cuda)
     assert adj.p == 1
@@ -474,8 +475,9 @@ def test_kernel_on_k_pad_128_layout_on_card(cuda, k):
 @pytest.mark.parametrize("k_pad", [32, 128])
 def test_kernel_on_hypergraph_factors_on_card(cuda, k_pad):
     """The two factors of G (rectangular in general, never symmetric):
-    forward and the transpose arrays, and TwoHopAdj through autograd,
-    card against CPU."""
+    forward and the transpose arrays at the widths HGNN launches them (the
+    hoist's 32-column chunks, each epoch's 40, the row sum's 1) and at
+    128, and TwoHopAdj through autograd, card against CPU."""
     from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
 
     _, factors = _hypergraph()
@@ -485,8 +487,10 @@ def test_kernel_on_hypergraph_factors_on_card(cuda, k_pad):
         ac = a.to(cuda)
         for t in (False, True):
             arrays = _ell_arrays(ac, t)
-            x = torch.randn(a.n_rows if t else a.n_cols, 128, device=cuda)
-            _close(es.ell_spmm(x, *arrays), es._ell_spmm_plain(x, *arrays))
+            for k in (128, 40, 32, 1):
+                x = torch.randn(a.n_rows if t else a.n_cols, k, device=cuda)
+                _close(es.ell_spmm(x, *arrays),
+                       es._ell_spmm_plain(x, *arrays))
     two_hop = TwoHopAdj(*adjs)
     x = torch.randn(two_hop.shape[1], 40, requires_grad=True)
     ct = torch.randn(two_hop.shape[0], 40)

@@ -381,5 +381,5 @@ def test_cli_on_cpu_prints_test_line(capsys, factored):
             "--device", "cpu"] + (["--factored"] if factored else [])
     acc = train_hgnn.main(argv)
     out = capsys.readouterr().out
-    assert "n=300 f=2048 classes=40 hyperedges=300" in out
+    assert "[synthetic] n=300 f=2048 classes=40 hyperedges=300" in out
     assert "HGNN test accuracy: " in out and 0.0 <= acc <= 1.0
