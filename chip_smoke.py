@@ -8,10 +8,12 @@ Drives the port's paths on the card — v6 GCN training through
 synth-arxiv's full width (n=169,343, 128 features, hidden 32, 40 classes),
 functional GCN training over the panel layout (``panel_adjacency``,
 ``hoist_spmm``, ``gcn_forward``, ``fit_gcn``; kernel K2), a resumed GCN
-run, GCN over the frequency-split tables, and HGNN training through
-``gcn_tpu_torch.models.HGNN`` at ModelNet40's shape on both forms of G (K1)
-— and holds every kernel against its plain PyTorch version. Phases (each
-failure exits non-zero):
+run, GCN over the frequency-split tables, row-band sharded GCN training
+through ``gcn_tpu_torch.parallel.make_sharded_gcn_train_step`` (four
+shards in this process, K1 on every shard's parts), and HGNN training
+through ``gcn_tpu_torch.models.HGNN`` at ModelNet40's shape on both forms
+of G (K1) — and holds every kernel against its plain PyTorch version.
+Phases (each failure exits non-zero):
 
   1. the card's name and power limit (nvidia-smi);
   2. the kernel build from the repository's sources (nvcc, one process per
@@ -73,7 +75,23 @@ failure exits non-zero):
      two-table time beside the single table's, and each part alone, forward
      and through its transpose arrays, against its float64 plain version,
      with its K1 time;
- 12. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
+ 12. row-band sharded GCN on synth-arxiv (rabbit, then the in-band degree
+     sort; 4 shards in this process; hidden 32, k_pad 32, exchange_chunk
+     32): the ragged plan and the pass-block parts' slots; K1 against its
+     float64 plain version on shard 0's interior and halo parts, forward
+     and through their transpose arrays, at the widths the step launches
+     (interior 32 and 40, halo 32 and 8); 5 steps (dropout 0) against the
+     port's unsharded functional GCN on the same graph (losses at rtol
+     1e-4, eval log-probs at atol 1e-4 + rtol 1e-5), the all_gather +
+     segsum baseline against the halo path (rtol 1e-4), the bf16 and fp8
+     wires against f32 (rtol 0.05, atol 0.02) and fp8 with the features
+     scaled by 1e4 (finite); 20 steps at dropout 0.5 with K1's launches
+     equal to the count reckoned from the code (``dist_launches``), the
+     median step from CUDA events and the test accuracy; its step under
+     torch.profiler; 10 + 10 steps resumed through
+     ``save_training_state`` against the 20 at rtol 1e-6; and K1's time in
+     each of the 8 uses beside ``torch.sparse.mm`` and the bound;
+ 13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
      = 1) at k=128, 40 and 1 and on each factor of G forward and through
@@ -89,7 +107,8 @@ failure exits non-zero):
      milestone at 5 against 20 at rtol 1e-6.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
-path's shape, K2, and K1 at HGNN's and the frequency split's shapes, each
+path's shape, K2, and K1 at HGNN's, the frequency split's and the sharded
+parts' shapes, each
 with the launches at its width of the run that uses it; every bound counts
 8 B a stored edge, not the layout's padding slots, and the operator's own
 rows written), the nvidia-smi line again, and
@@ -252,7 +271,6 @@ def profile_steps(model, idx_train, steps):
     share of the wall time (the profiler's own host cost included)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gcn_tpu_torch.models.gcn_core import gcn_forward
     from gcn_tpu_torch.models.layers import auto_order
@@ -281,6 +299,16 @@ def profile_steps(model, idx_train, steps):
         loss.backward()
         opt.step()
 
+    profile_device("[profile]", step, steps)
+
+
+def profile_device(label, step, steps):
+    """Run ``step`` 3 times, then ``steps`` times under torch.profiler;
+    print the wall and device-busy ms a step (the profiler's own host cost
+    included), K1's device ms a step and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -303,7 +331,7 @@ def profile_steps(model, idx_train, steps):
                              + evt.time_range.elapsed_us() / 1e3)
     busy_ms = sum(by_name.values())
     k1_ms = sum(ms for name, ms in by_name.items() if "ell_spmm" in name)
-    print(f"[profile] {steps} steps under torch.profiler: wall "
+    print(f"{label} {steps} steps under torch.profiler: wall "
           f"{wall_ms / steps:.3f} ms/step, device busy {busy_ms / steps:.3f}"
           f" ms/step ({100 * busy_ms / wall_ms:.1f}% busy), "
           f"{n_kernels / steps:.1f} device activities/step; K1 "
@@ -786,6 +814,296 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
     return rows
 
 
+DIST_SHARDS = 4
+DIST_CHUNK = 32
+# the sharded step's K1 uses on a shard: (part, transpose arrays, width, use)
+# at hidden 32 and 40 classes with exchange_chunk 32
+DIST_USES = (("interior", False, 32, "layer 1 forward"),
+             ("interior", True, 32, "layer 1 dX"),
+             ("interior", False, 40, "layer 2 forward"),
+             ("interior", True, 40, "layer 2 dX"),
+             ("halo", False, 32, "layer 1 forward, layer 2's first chunk"),
+             ("halo", True, 32, "layer 1 dX, layer 2's first chunk dX"),
+             ("halo", False, 8, "layer 2's second chunk"),
+             ("halo", True, 8, "layer 2's second chunk dX"))
+
+
+def ell_csr(a, t, device):
+    """One direction of an EllAdj (``t``: its transpose arrays) as a torch
+    sparse CSR tensor of its stored edges, for ``torch.sparse.mm``."""
+    import numpy as np
+
+    from gcn_tpu_torch.graph.csr import coo_to_csr
+
+    cols, vals, win, _, n_out, n_in = k1_arrays(a, t)
+    cols, vals = cols.cpu().numpy(), vals.cpu().numpy()
+    rows = np.broadcast_to(win.cpu().numpy()[:, None, None] * a.r
+                           + np.arange(a.r)[None, None, :], cols.shape)
+    real = vals != 0
+    return csr_tensor(coo_to_csr(rows[real], cols[real], vals[real],
+                                 (n_out, n_in)), device)
+
+
+def dist_launches(n_shards, widths, chunk, steps):
+    """K1 launches of a sharded fit reckoned from the code: per shard and
+    layer of output width f, one interior launch and one halo launch a
+    k-chunk (ceil(f / chunk) chunks when f exceeds the chunk, else one);
+    the backward as many again; then one eval forward."""
+    fwd = sum(1 + (-(-f // chunk) if f > chunk else 1) for f in widths)
+    return n_shards * (2 * fwd * steps + fwd)
+
+
+def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
+    """Row-band sharded GCN on synth-arxiv, four shards in this process
+    on the card: the plan, K1 on shard 0's parts against its float64 plain
+    version, sharded against unsharded, the all_gather baseline, the bf16
+    and fp8 wires, a 20-step run with K1's launches counted, a profile of
+    its step, a resume, and the ``kernels`` rows of K1 on the parts.
+    Returns the rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models.gcn_core import gcn_forward
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.parallel import (band_degree_sort_order,
+                                        build_halo_plan_ragged,
+                                        build_sharded_ell_blocks,
+                                        create_mesh,
+                                        make_sharded_gcn_train_step,
+                                        rows_per_shard_for,
+                                        shard_graph_by_rows)
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+    from gcn_tpu_torch.train.loop import fit_gcn
+    from gcn_tpu_torch.train.optim import adam_l2
+    from gcn_tpu_torch.utils.checkpoint import (load_training_state,
+                                                named_leaves,
+                                                save_training_state)
+    from gcn_tpu_torch.utils.timers import Timers
+
+    ns, n = DIST_SHARDS, g_rabbit.shape[0]
+    nhid, ncls = p0["gc1"]["w"].shape[1], data.num_classes
+    t0 = time.time()
+    bperm = band_degree_sort_order(g_rabbit, rows_per_shard_for(n, ns))
+    g = g_rabbit.permute(bperm)
+    perm = perm_rabbit[bperm]
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n)
+    x, labels = data.features[perm], data.labels[perm]
+    idx_train = inv[np.asarray(data.idx_train)]
+    mask_tr = np.zeros(n, np.float32)
+    mask_tr[idx_train] = 1.0
+    idx_test = torch.as_tensor(inv[np.asarray(data.idx_test)], device=dev)
+    sg = shard_graph_by_rows(g, ns)
+    t_sort = time.time() - t0
+    t0 = time.time()
+    plan = build_halo_plan_ragged(sg)
+    t_plan = time.time() - t0
+    t0 = time.time()
+    parts = dict(zip(("interior", "halo"),
+                     build_sharded_ell_blocks(sg, plan, k_pad=32,
+                                              device=dev)))
+    torch.cuda.synchronize()
+    t_layout = time.time() - t0
+    print(f"[dist] synth-arxiv, {ns} shards in one process on {dev}: "
+          f"{sg.rows_per_shard} rows a shard; ragged plan sizes "
+          f"{plan.sizes}, exchange fraction {plan.exchange_fraction:.4f}, "
+          f"boundary fraction {sg.boundary_fraction():.4f}; host seconds: "
+          f"band sort and shard {t_sort:.2f}, plan {t_plan:.2f}, "
+          f"layouts {t_layout:.2f} (upload included)", flush=True)
+    for name, part in parts.items():
+        for t in (False, True):
+            a = part[0]
+            slots = a.t_cols.numel() if t else a.cols.numel()
+            off = a.t_win_off if t else a.win_off
+            print(f"  {name} part, {'transpose arrays' if t else 'forward'} "
+                  f"({a.n_cols if t else a.n_rows} x "
+                  f"{a.n_rows if t else a.n_cols}): {slots} slots a shard "
+                  f"(lockstep); stored edges by shard "
+                  f"{[p.nnz for p in part]}, pad fractions "
+                  f"{[round(1 - p.nnz / slots, 3) for p in part]}; "
+                  f"{off.numel() - 1} windows, up to "
+                  f"{int(off.diff().max())} pass-blocks a window",
+                  flush=True)
+
+    print("[dist K1 vs plain] shard 0's parts at the widths the step "
+          "launches, float64 plain version, f32 tolerance", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    xs_k, errs = {}, {}
+    for name, t, k, _ in DIST_USES:
+        cols, vals, win, win_off, n_out, n_in = k1_arrays(parts[name][0], t)
+        xk = xs_k[name, t, k] = torch.randn(n_in, k, device=dev,
+                                            generator=gen)
+        errs[name, t, k] = compare(
+            f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
+            es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+            es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
+                               win_off, n_out))
+    torch.cuda.synchronize()
+
+    def start(shard_fn, feats=x, p=p0):
+        """(params, opt, (adj, xs, ys, ms)) from numpy parameters ``p``."""
+        params = params_from_numpy(p, dev)
+        opt = adam_l2([t.requires_grad_(True)
+                       for _, t in named_leaves(params)])
+        return params, opt, shard_fn(feats, labels, mask_tr)
+
+    def fit(step, state, steps, it0=0, events=False):
+        """``steps`` sharded steps on ``state`` with the dropout stream
+        (SEED + 1, iteration); returns the losses and, with ``events``,
+        each step's CUDA-event ms."""
+        params, opt, (adj, xs, ys, ms) = state
+        losses, marks = [], []
+        for i in range(it0, it0 + steps):
+            if events:
+                marks.append((torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True)))
+                marks[-1][0].record()
+            losses.append(step(params, opt, (SEED + 1, i), adj, xs, ys, ms))
+            if events:
+                marks[-1][1].record()
+        torch.cuda.synchronize()
+        return ([float(v) for v in losses],
+                [s.elapsed_time(e) for s, e in marks])
+
+    def evaluate(eval_fn, state):
+        return eval_fn(state[0], state[2][0], state[2][1])[:n]
+
+    mesh = create_mesh(ns, dev)
+    print("[dist fit 5 steps, dropout 0] sharded vs the unsharded "
+          "functional GCN (gcn_forward over ell_adjacency) on the same "
+          "band-sorted graph", flush=True)
+    t0 = time.time()
+    step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+        mesh, sg, dropout=0.0, exchange_chunk=DIST_CHUNK, k_pad=32)
+    print(f"  make_sharded_gcn_train_step: {time.time() - t0:.2f}s",
+          flush=True)
+    state = start(shard_fn)
+    halo_l, _ = fit(step, state, 5)
+    halo_lp = evaluate(eval_fn, state)
+    uadj = ell_adjacency(g, k_pad=32, symmetric=True, device=dev)
+    feats = torch.as_tensor(x, device=dev)
+    res = fit_gcn(params_from_numpy(p0, dev), adam_l2,
+                  lambda p, train: gcn_forward(p, feats, uadj,
+                                               dropout_rate=0.0,
+                                               train=train),
+                  torch.as_tensor(labels, device=dev),
+                  torch.as_tensor(idx_train, device=dev), train_iters=5,
+                  timers=Timers(dev))
+    unsharded = [h["loss_train"] for h in res.history]
+    print(f"  sharded losses {halo_l}\n  unsharded losses {unsharded}",
+          flush=True)
+    check_close_losses("sharded vs unsharded", halo_l, unsharded, 1e-4)
+    compare("sharded vs unsharded eval log-probs", halo_lp, res.log_probs,
+            rtol=1e-5, atol=1e-4)
+    agg = make_sharded_gcn_train_step(mesh, sg, dropout=0.0,
+                                      exchange="all_gather")
+    ag_l, _ = fit(agg[0], start(agg[2]), 5)
+    print(f"  all_gather + segsum baseline losses {ag_l}", flush=True)
+    check_close_losses("all_gather baseline vs halo", ag_l, halo_l, 1e-4)
+
+    print("[dist wires] 5 steps, dropout 0, against the f32 wire (rtol "
+          "0.05, atol 0.02)", flush=True)
+    for wire in ("bf16", "fp8"):
+        w_step, _, w_shard = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, exchange_dtype=wire,
+            exchange_chunk=DIST_CHUNK, k_pad=32)
+        wl, _ = fit(w_step, start(w_shard), 5)
+        ok = np.allclose(wl, halo_l, rtol=0.05, atol=0.02) and wl[-1] < wl[0]
+        print(f"  {wire}: losses {wl} -> {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"the {wire} wire does not track f32: {wl} vs {halo_l}")
+        if wire == "fp8":
+            big, _ = fit(w_step, start(w_shard, x * 1e4), 1)
+            print(f"  fp8 with features x 1e4: loss {big[0]:.6g}",
+                  flush=True)
+            if not np.isfinite(big[0]):
+                fail("the fp8 wire overflowed with features x 1e4")
+
+    steps = 20
+    print(f"[dist main path] make_sharded_gcn_train_step, {steps} steps, "
+          f"hidden {nhid}, dropout 0.5, seed {SEED}, exchange_chunk "
+          f"{DIST_CHUNK}", flush=True)
+    step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+        mesh, sg, dropout=0.5, exchange_chunk=DIST_CHUNK, k_pad=32)
+    state = start(shard_fn)
+    reset_launches()
+    t0 = time.time()
+    losses, step_ms = fit(step, state, steps, events=True)
+    lp = evaluate(eval_fn, state)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fit_s = time.time() - t0
+    acc = (lp[idx_test].argmax(1).cpu().numpy()
+           == labels[idx_test.cpu().numpy()]).mean()
+    expected = dist_launches(ns, (nhid, ncls), DIST_CHUNK, steps)
+    print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; fit "
+          f"{fit_s:.2f}s; median step {statistics.median(step_ms[-10:]):.3f}"
+          f" ms (CUDA events, last 10 steps); test accuracy {acc:.4f}",
+          flush=True)
+    print(f"  K1 launches: {launches[0]} by width {launches[1]} (expected "
+          f"{expected} from the code)", flush=True)
+    if launches[0] != expected:
+        fail(f"sharded run: {launches[0]} K1 launches, expected {expected}")
+    if not losses[-1] < losses[0]:
+        fail("sharded run: loss did not fall")
+    if tuple(lp.shape) != (n, ncls) or not torch.isfinite(lp).all():
+        fail(f"sharded output shape {tuple(lp.shape)} or values not finite")
+    it = iter(range(steps, 10 ** 9))
+    profile_device("[dist profile]", lambda: step(
+        state[0], state[1], (SEED + 1, next(it)), *state[2]), 5)
+
+    print("[dist resume] 10 + save_training_state + 10 steps against the "
+          "20", flush=True)
+    first = start(shard_fn)
+    l1, _ = fit(step, first, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dist_state")
+        save_training_state(path, first[0], first[1].state_dict()["state"],
+                            10)
+        saved = load_training_state(path, first[0])
+    second = start(shard_fn, p=params_to_numpy(saved.params))
+    full = second[1].state_dict()
+    full["state"] = saved.adam_state
+    second[1].load_state_dict(full)
+    l2, _ = fit(step, second, 10, it0=saved.iteration)
+    check_close_losses("dist 10 + 10 vs 20", l1 + l2, losses, 1e-6)
+
+    rows = []
+    for name, t, k, use in DIST_USES:
+        a = parts[name][0]
+        cols, vals, win, win_off, n_out, n_in = k1_arrays(a, t)
+        xk = xs_k[name, t, k]
+        # each call reads the same x: the halo part's output is shorter
+        # than its input, so an output cannot feed the next call
+        ms = time_chain(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
+                                              n_out), xk, n_in, 30)
+        plain_ms = time_chain(lambda _: es._ell_spmm_plain(
+            xk, cols, vals, win, win_off, n_out), xk, n_in, 3)
+        csr = ell_csr(a, t, dev)
+        lib_ms = time_chain(lambda _: torch.sparse.mm(csr, xk), xk, n_in, 30)
+        label = (f"sharded {name} part, shard 0, "
+                 f"{'transpose arrays' if t else 'forward'} k={k} ({use})")
+        print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} "
+              f"ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
+        bound_ms, bound_by = spmm_bound(a.nnz, win_off, n_in, n_out, k)
+        print(f"  K1 at {100 * bound_ms / ms:.1f}% of the bound (by "
+              f"{bound_by})", flush=True)
+        rows.append({
+            "name": f"ell_spmm: {label}", "route": "cuda",
+            "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
+            "replaces": K1_REPLACES, "launches": launches[1].get(k, 0),
+            "launches_by_k": launches[1],
+            "path": f"sharded GCN, {ns} shards, {steps} steps",
+            "max_abs_err": errs[name, t, k], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
+
+
 def gcn_resume_phase(dev, data, uninterrupted):
     """GCN v6 on synth-arxiv: 10 steps, ``save_state``, a resume of 10,
     against the main path's uninterrupted 20 (dropout 0.5)."""
@@ -865,6 +1183,7 @@ def main():
     data = get_dataset("synth-arxiv", seed=SEED)
     g = gcn_normalize(data.adj)
     g, perm = reorder_graph(g, "rabbit")
+    g_rabbit, perm_rabbit = g, perm
     ds = degree_sort_order(g)
     g = g.permute(ds)
     perm = perm[ds]
@@ -1251,9 +1570,10 @@ def main():
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
 
-    # ---- 10.-12. resumable state, the frequency split, HGNN ---------------
+    # ---- 10.-13. resumable state, the frequency split, sharded, HGNN ------
     gcn_resume_phase(dev, data, losses)
     freq_rows = freq_phases(dev, g, data, p0, hist["cuda"], adj)
+    dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0)
     hgnn_rows = hgnn_phases(dev)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 
@@ -1292,7 +1612,7 @@ def main():
         "heavy_ms": heavy_ms,
         "light_ms": light_ms,
         "heavy_windows": padj.heavy.numel(),
-    }] + hgnn_rows + freq_rows}))
+    }] + hgnn_rows + freq_rows + dist_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

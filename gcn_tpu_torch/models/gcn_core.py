@@ -15,7 +15,9 @@ from gcn_tpu_torch.models.layers import dropout, graph_conv, init_linear
 
 def init_gcn_params(generator: torch.Generator, nfeat: int, nhid: int,
                     nclass: int, with_bias: bool = True, dtype=torch.float32,
-                    device="cpu"):
+                    device=None):
+    """Both layers' parameters on ``device``: the card by default,
+    ``device="cpu"`` for the CPU (``init_linear``)."""
     return {
         "gc1": init_linear(generator, nfeat, nhid, with_bias, dtype, device),
         "gc2": init_linear(generator, nhid, nclass, with_bias, dtype,

@@ -35,7 +35,9 @@ from gcn_tpu_torch.utils.timers import Marks, Timers
 
 
 def init_hgnn_params(generator: torch.Generator, in_ch: int, n_hid: int,
-                     n_class: int, dtype=torch.float32, device="cpu"):
+                     n_class: int, dtype=torch.float32, device=None):
+    """Both layers' parameters on ``device``: the card by default,
+    ``device="cpu"`` for the CPU (``init_linear``)."""
     return {
         "hgc1": init_linear(generator, in_ch, n_hid, True, dtype, device),
         "hgc2": init_linear(generator, n_hid, n_class, True, dtype, device),

@@ -12,13 +12,17 @@ from typing import Dict
 
 import torch
 
+from gcn_tpu_torch.utils.device import resolve_device
+
 
 def init_linear(generator: torch.Generator, n_in: int, n_out: int,
                 with_bias: bool = True, dtype=torch.float32,
-                device="cpu") -> Dict[str, torch.Tensor]:
+                device=None) -> Dict[str, torch.Tensor]:
     """U(-1/sqrt(out), 1/sqrt(out)) weights drawn from ``generator`` (on the
-    CPU, so every device gets the same numbers), then moved to
-    ``device``."""
+    CPU, so every device gets the same numbers), then moved to ``device``:
+    the card by default (``utils.device.resolve_device``), ``device="cpu"``
+    for the CPU."""
+    device = resolve_device(device)
     stdv = 1.0 / (n_out ** 0.5)
 
     def uniform(shape):

@@ -553,3 +553,87 @@ def test_hgnn_fit_on_card_matches_cpu(cuda):
                   num_epochs=3)
             losses.append([h["loss_train"] for h in m.history])
         np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def _sharded_problem(device, n_shards=4):
+    """A community graph cut into ``n_shards`` in-band degree-sorted bands,
+    with its ragged plan and pass-block parts on ``device``."""
+    from gcn_tpu_torch.data.synthetic import class_features, sbm
+    from gcn_tpu_torch.parallel import (band_degree_sort_order,
+                                        build_halo_plan_ragged,
+                                        build_sharded_ell_blocks,
+                                        rows_per_shard_for,
+                                        shard_graph_by_rows)
+
+    adj, labels = sbm(n=2000, n_classes=5, avg_degree=10.0, seed=11)
+    g = gcn_normalize(adj)
+    perm = band_degree_sort_order(g, rows_per_shard_for(2000, n_shards))
+    g = g.permute(perm)
+    x = class_features(labels, feat_dim=24, seed=11)[perm]
+    sg = shard_graph_by_rows(g, n_shards)
+    plan = build_halo_plan_ragged(sg)
+    parts = build_sharded_ell_blocks(sg, plan, k_pad=32, device=device)
+    return g, sg, x, labels[perm], parts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 40, 8])
+@pytest.mark.parametrize("part", ["interior", "halo"])
+@pytest.mark.parametrize("t", [False, True])
+def test_kernel_on_sharded_parts_on_card(cuda, k, part, t):
+    """K1 on every shard's interior and halo part, forward and through the
+    transpose arrays, at the widths the sharded step launches."""
+    _, _, _, _, parts = _sharded_problem(cuda)
+    for a in parts[part == "halo"]:
+        cols, vals, win, win_off, n_out, n_in = (
+            (a.t_cols, a.t_vals, a.t_win, a.t_win_off, a.n_cols, a.n_rows)
+            if t else (a.cols, a.vals, a.win, a.win_off, a.n_rows,
+                       a.n_cols))
+        x = torch.randn(n_in, k, device=cuda)
+        before = es.spmm_ell_launches
+        got = es.ell_spmm(x, cols, vals, win, win_off, n_out)
+        torch.cuda.synchronize()
+        assert es.spmm_ell_launches == before + 1
+        _close(got, es._ell_spmm_plain(x.double(), cols, vals.double(), win,
+                                       win_off, n_out).float())
+
+
+@pytest.mark.cuda
+def test_sharded_fit_on_card_matches_cpu(cuda):
+    """Two sharded steps at dropout 0, four shards in one process, card
+    against CPU from the same parameters: losses at rtol 1e-4, eval
+    log-probs at atol 1e-4 + rtol 1e-5; the card's run launches K1 for
+    every per-shard SpMM and the CPU's none."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models.gcn_core import init_gcn_params
+    from gcn_tpu_torch.parallel import (create_mesh,
+                                        make_sharded_gcn_train_step)
+    from gcn_tpu_torch.train.optim import adam_l2
+    from gcn_tpu_torch.utils.checkpoint import named_leaves
+
+    g, sg, x, labels, _ = _sharded_problem("cpu")
+    p0 = params_to_numpy(init_gcn_params(torch.Generator().manual_seed(3),
+                                         24, 40, 5, device="cpu"))
+    mask = np.zeros(g.shape[0], np.float32)
+    mask[::3] = 1.0
+    runs = {}
+    for device in ("cpu", cuda):
+        step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+            create_mesh(4, device), sg, dropout=0.0)
+        adj, xs, ys, ms = shard_fn(x, labels, mask)
+        params = params_from_numpy(p0, device)
+        opt = adam_l2([t.requires_grad_(True)
+                       for _, t in named_leaves(params)])
+        before = es.spmm_ell_launches
+        losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
+                  for i in range(2)]
+        lp = eval_fn(params, adj, xs).cpu()
+        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before)
+    (l_cpu, lp_cpu, k1_cpu), (l_card, lp_card, k1_card) = runs.values()
+    assert k1_cpu == 0
+    # per shard and step, forward: layer 1 interior + two halo chunks (32
+    # and 8 of its 40 columns), layer 2 interior + halo; as many backward;
+    # 5 per shard in eval
+    assert k1_card == 4 * (2 * 10 + 5)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)

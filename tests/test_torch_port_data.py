@@ -171,9 +171,12 @@ def test_ell_adjacency_device_move_keeps_aliases():
 
 
 def _default_device_builders():
-    """Each public layout builder and the weight carrier, called with no
-    device."""
+    """Each public layout builder, the weight carrier and the parameter
+    initializers, called with no device."""
     from gcn_tpu_torch.convert import params_from_numpy
+    from gcn_tpu_torch.models.gcn_core import init_gcn_params
+    from gcn_tpu_torch.models.hgnn import init_hgnn_params
+    from gcn_tpu_torch.models.layers import init_linear
     from gcn_tpu_torch.ops.adjacency import (coo_adjacency, dense_adjacency,
                                              device_adjacency)
 
@@ -194,6 +197,14 @@ def _default_device_builders():
             lambda **d: device_adjacency(g, "dense", **d), lambda a: a.mat),
         "params_from_numpy": (lambda **d: params_from_numpy(params, **d),
                               lambda p: p["gc1"]["w"]),
+        "init_linear": (lambda **d: init_linear(torch.Generator(), 3, 2, **d),
+                        lambda p: p["w"]),
+        "init_gcn_params": (
+            lambda **d: init_gcn_params(torch.Generator(), 3, 4, 2, **d),
+            lambda p: p["gc2"]["b"]),
+        "init_hgnn_params": (
+            lambda **d: init_hgnn_params(torch.Generator(), 3, 4, 2, **d),
+            lambda p: p["hgc1"]["w"]),
     }
 
 
@@ -201,7 +212,8 @@ def _default_device_builders():
                                   "dense_adjacency", "device_adjacency_ell",
                                   "device_adjacency_coo",
                                   "device_adjacency_dense",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "init_linear",
+                                  "init_gcn_params", "init_hgnn_params"])
 def test_builders_default_to_the_card(name):
     """No device means the card: without a GPU each builder raises rather
     than building on the CPU; ``device="cpu"`` builds on the CPU."""

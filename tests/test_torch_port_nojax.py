@@ -1,6 +1,7 @@
 """gcn_tpu_torch imports, trains GCN and HGNN (both forms of G), runs the
-panel and frequency-split SpMMs, and saves and resumes a training state,
-with jax and gcn_tpu blocked."""
+panel and frequency-split SpMMs, saves and resumes a training state, and
+takes sharded training steps over two row bands, with jax and gcn_tpu
+blocked."""
 
 import os
 import subprocess
@@ -64,6 +65,22 @@ with tempfile.TemporaryDirectory() as tmp:
     m2.fit(data.features, data.adj, data.labels, data.idx_train,
            train_iters=2, resume_from=path)
     assert m2._iters_done == 5
+import gcn_tpu_torch.train_gcn_dist
+from gcn_tpu_torch.models.gcn_core import init_gcn_params
+from gcn_tpu_torch.parallel import (create_mesh, make_sharded_gcn_train_step,
+                                    shard_graph_by_rows)
+from gcn_tpu_torch.train.optim import adam_l2
+from gcn_tpu_torch.utils.checkpoint import named_leaves
+step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+    create_mesh(2, "cpu"), shard_graph_by_rows(g, 2), dropout=0.5)
+a, xs, ys, ms = shard_fn(data.features, data.labels,
+                         np.ones(data.num_nodes, np.float32))
+params = init_gcn_params(torch.Generator().manual_seed(0), data.num_features,
+                         8, data.num_classes, device="cpu")
+opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
+losses = [float(step(params, opt, (1, i), a, xs, ys, ms)) for i in range(2)]
+assert np.isfinite(losses).all() and len(losses) == 2
+assert eval_fn(params, a, xs).shape[1] == data.num_classes
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)
