@@ -829,19 +829,23 @@ DIST_USES = (("interior", False, 32, "layer 1 forward"),
 
 
 def ell_csr(a, t, device):
-    """One direction of an EllAdj (``t``: its transpose arrays) as a torch
-    sparse CSR tensor of its stored edges, for ``torch.sparse.mm``."""
+    """The operator of an EllAdj without hub rows (``t``: its transpose) as
+    a torch sparse CSR tensor of its stored edges, for ``torch.sparse.mm``;
+    read from the forward arrays, which hold every edge once."""
     import numpy as np
 
     from gcn_tpu_torch.graph.csr import coo_to_csr
 
-    cols, vals, win, _, n_out, n_in = k1_arrays(a, t)
-    cols, vals = cols.cpu().numpy(), vals.cpu().numpy()
-    rows = np.broadcast_to(win.cpu().numpy()[:, None, None] * a.r
+    cols, vals = a.cols.cpu().numpy(), a.vals.cpu().numpy()
+    rows = np.broadcast_to(a.win.cpu().numpy()[:, None, None] * a.r
                            + np.arange(a.r)[None, None, :], cols.shape)
     real = vals != 0
-    return csr_tensor(coo_to_csr(rows[real], cols[real], vals[real],
-                                 (n_out, n_in)), device)
+    rows, cols, vals = rows[real], cols[real], vals[real]
+    if t:
+        return csr_tensor(coo_to_csr(cols, rows, vals, (a.n_cols, a.n_rows)),
+                          device)
+    return csr_tensor(coo_to_csr(rows, cols, vals, (a.n_rows, a.n_cols)),
+                      device)
 
 
 def dist_launches(n_shards, widths, chunk, steps):
@@ -870,7 +874,6 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     from gcn_tpu_torch.ops import ell_spmm as es
     from gcn_tpu_torch.parallel import (band_degree_sort_order,
                                         build_halo_plan_ragged,
-                                        build_sharded_ell_blocks,
                                         create_mesh,
                                         make_sharded_gcn_train_step,
                                         rows_per_shard_for,
@@ -901,47 +904,6 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     t0 = time.time()
     plan = build_halo_plan_ragged(sg)
     t_plan = time.time() - t0
-    t0 = time.time()
-    parts = dict(zip(("interior", "halo"),
-                     build_sharded_ell_blocks(sg, plan, k_pad=32,
-                                              device=dev)))
-    torch.cuda.synchronize()
-    t_layout = time.time() - t0
-    print(f"[dist] synth-arxiv, {ns} shards in one process on {dev}: "
-          f"{sg.rows_per_shard} rows a shard; ragged plan sizes "
-          f"{plan.sizes}, exchange fraction {plan.exchange_fraction:.4f}, "
-          f"boundary fraction {sg.boundary_fraction():.4f}; host seconds: "
-          f"band sort and shard {t_sort:.2f}, plan {t_plan:.2f}, "
-          f"layouts {t_layout:.2f} (upload included)", flush=True)
-    for name, part in parts.items():
-        for t in (False, True):
-            a = part[0]
-            slots = a.t_cols.numel() if t else a.cols.numel()
-            off = a.t_win_off if t else a.win_off
-            print(f"  {name} part, {'transpose arrays' if t else 'forward'} "
-                  f"({a.n_cols if t else a.n_rows} x "
-                  f"{a.n_rows if t else a.n_cols}): {slots} slots a shard "
-                  f"(lockstep); stored edges by shard "
-                  f"{[p.nnz for p in part]}, pad fractions "
-                  f"{[round(1 - p.nnz / slots, 3) for p in part]}; "
-                  f"{off.numel() - 1} windows, up to "
-                  f"{int(off.diff().max())} pass-blocks a window",
-                  flush=True)
-
-    print("[dist K1 vs plain] shard 0's parts at the widths the step "
-          "launches, float64 plain version, f32 tolerance", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    xs_k, errs = {}, {}
-    for name, t, k, _ in DIST_USES:
-        cols, vals, win, win_off, n_out, n_in = k1_arrays(parts[name][0], t)
-        xk = xs_k[name, t, k] = torch.randn(n_in, k, device=dev,
-                                            generator=gen)
-        errs[name, t, k] = compare(
-            f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
-            es.ell_spmm(xk, cols, vals, win, win_off, n_out),
-            es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
-                               win_off, n_out))
-    torch.cuda.synchronize()
 
     def start(shard_fn, feats=x, p=p0):
         """(params, opt, (adj, xs, ys, ms)) from numpy parameters ``p``."""
@@ -972,15 +934,55 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
         return eval_fn(state[0], state[2][0], state[2][1])[:n]
 
     mesh = create_mesh(ns, dev)
-    print("[dist fit 5 steps, dropout 0] sharded vs the unsharded "
-          "functional GCN (gcn_forward over ell_adjacency) on the same "
-          "band-sorted graph", flush=True)
     t0 = time.time()
     step, eval_fn, shard_fn = make_sharded_gcn_train_step(
         mesh, sg, dropout=0.0, exchange_chunk=DIST_CHUNK, k_pad=32)
-    print(f"  make_sharded_gcn_train_step: {time.time() - t0:.2f}s",
-          flush=True)
+    torch.cuda.synchronize()
+    t_make = time.time() - t0
+    print(f"[dist] synth-arxiv, {ns} shards in one process on {dev}: "
+          f"{sg.rows_per_shard} rows a shard; ragged plan sizes "
+          f"{plan.sizes}, exchange fraction {plan.exchange_fraction:.4f}, "
+          f"boundary fraction {sg.boundary_fraction():.4f}; host seconds: "
+          f"band sort and shard {t_sort:.2f}, plan {t_plan:.2f}, "
+          f"make_sharded_gcn_train_step (plan and layouts, upload "
+          f"included) {t_make:.2f}", flush=True)
     state = start(shard_fn)
+    # the step's own layouts: shard_fn's adjacency of the ELL path is
+    # ((interior parts, halo parts), send_idx), one entry an owned shard
+    parts = dict(zip(("interior", "halo"), state[2][0][0]))
+    for name, part in parts.items():
+        for t in (False, True):
+            a = part[0]
+            slots = a.t_cols.numel() if t else a.cols.numel()
+            off = a.t_win_off if t else a.win_off
+            print(f"  {name} part, {'transpose arrays' if t else 'forward'} "
+                  f"({a.n_cols if t else a.n_rows} x "
+                  f"{a.n_rows if t else a.n_cols}): {slots} slots a shard "
+                  f"(lockstep); stored edges by shard "
+                  f"{[p.nnz for p in part]}, pad fractions "
+                  f"{[round(1 - p.nnz / slots, 3) for p in part]}; "
+                  f"{off.numel() - 1} windows, up to "
+                  f"{int(off.diff().max())} pass-blocks a window",
+                  flush=True)
+
+    print("[dist K1 vs plain] shard 0's parts at the widths the step "
+          "launches, float64 plain version, f32 tolerance", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    xs_k, errs = {}, {}
+    for name, t, k, _ in DIST_USES:
+        cols, vals, win, win_off, n_out, n_in = k1_arrays(parts[name][0], t)
+        xk = xs_k[name, t, k] = torch.randn(n_in, k, device=dev,
+                                            generator=gen)
+        errs[name, t, k] = compare(
+            f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
+            es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+            es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
+                               win_off, n_out))
+    torch.cuda.synchronize()
+
+    print("[dist fit 5 steps, dropout 0] sharded vs the unsharded "
+          "functional GCN (gcn_forward over ell_adjacency) on the same "
+          "band-sorted graph", flush=True)
     halo_l, _ = fit(step, state, 5)
     halo_lp = evaluate(eval_fn, state)
     uadj = ell_adjacency(g, k_pad=32, symmetric=True, device=dev)

@@ -266,63 +266,65 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
         return rows[m], j[m] - cut[m], g.indices[m] - halo_cols, g.data[m]
 
     def layout_part(which, counts):
+        """The part's forward (cols, vals) of each shard of ``shards``, its
+        ``win`` and spans."""
         offs = np.zeros(nw + 1, dtype=np.int64)
         np.cumsum(counts, out=offs[1:])
         nb = int(offs[-1])
-        cols_a = np.zeros((ns, nb, p, r), dtype=np.int32)
-        vals_a = np.zeros((ns, nb, p, r), dtype=np.float32)
-        for d in range(ns):
+        arrays = []
+        for d in shards:
             rows, j, cc, vv = split_edges(d, which)
             w = rows // r
-            blk = offs[w] + j // p
-            cols_a[d, blk, j % p, rows - w * r] = cc
-            vals_a[d, blk, j % p, rows - w * r] = vv
-        win = np.repeat(np.arange(nw, dtype=np.int32),
-                        counts).astype(np.int32)
-        spans = _guard_spans(_span_plan(offs), span_pass_limit)
-        return cols_a, vals_a, win, spans
+            at = (offs[w] + j // p, j % p, rows - w * r)
+            cols = np.zeros((nb, p, r), dtype=np.int32)
+            vals = np.zeros((nb, p, r), dtype=np.float32)
+            cols[at], vals[at] = cc, vv
+            arrays.append((cols, vals))
+        win = np.repeat(np.arange(nw, dtype=np.int32), counts)
+        return arrays, win, _guard_spans(_span_plan(offs), span_pass_limit)
 
     def layout_transpose(which, n_rows_t):
-        t_list = []
-        for d in range(ns):
-            rows, _, cc, vv = split_edges(d, which)
-            t_list.append(coo_to_csr(cc, rows, vv, (n_rows_t, rps)))
+        """The part's transpose (cols, vals) of each shard of ``shards`` at
+        the pass counts of every shard's transpose (of the other shards
+        only the degrees are needed), its ``win`` and spans."""
+        edges = [split_edges(d, which) for d in range(ns)]
+        indptrs = [np.concatenate([[0], np.cumsum(np.bincount(
+            cc, minlength=n_rows_t))]) for _, _, cc, _ in edges]
         pt = _fit_counts(np.maximum.reduce(
-            [_window_passes(t.indptr, n_rows_t, r, p) for t in t_list]))
-        cols, vals_a, wins = [], [], []
-        off = None
-        for t in t_list:
-            c, v, w_, off = _ell_arrays(t.indptr, t.indices, t.data,
-                                        n_rows_t, r, p, forced_passes=pt)
-            cols.append(c)
-            vals_a.append(v)
-            wins.append(w_)
-        spans = _guard_spans(_span_plan(off), span_pass_limit)
-        return np.stack(cols), np.stack(vals_a), wins[0], spans
+            [_window_passes(ip_, n_rows_t, r, p) for ip_ in indptrs]))
+        arrays = []
+        for d in shards:
+            rows, _, cc, vv = edges[d]
+            t = coo_to_csr(cc, rows, vv, (n_rows_t, rps))
+            cols, vals, _, _ = _ell_arrays(t.indptr, t.indices, t.data,
+                                           n_rows_t, r, p, forced_passes=pt)
+            arrays.append((cols, vals))
+        off = np.zeros(len(pt) + 1, dtype=np.int64)
+        np.cumsum(pt, out=off[1:])
+        win = np.repeat(np.arange(len(pt), dtype=np.int32), pt)
+        return arrays, win, _guard_spans(_span_plan(off), span_pass_limit)
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(a).to(device)
 
     parts = []
     for which, counts, n_cols_part in (
             ("interior", ip, rps), ("halo", hp, halo_cols + rps)):
-        cols_a, vals_a, win, spans = layout_part(which, counts)
-        t_cols_a, t_vals_a, t_win, t_spans = layout_transpose(
-            which, n_cols_part)
+        fwd, win, spans = layout_part(which, counts)
+        bwd, t_win, t_spans = layout_transpose(which, n_cols_part)
         nw_t = max(1, -(-n_cols_part // r))
         win_d, t_win_d = dev(win), dev(t_win)
         win_off = dev(_win_offsets(win, nw))
         t_win_off = dev(_win_offsets(t_win, nw_t))
         parts.append([EllAdj(
-            cols=dev(cols_a[d]), vals=dev(vals_a[d]), win=win_d,
-            win_off=win_off, t_cols=dev(t_cols_a[d]),
-            t_vals=dev(t_vals_a[d]), t_win=t_win_d, t_win_off=t_win_off,
-            n_rows=rps, n_cols=n_cols_part,
-            nnz=int((vals_a[d] != 0).sum()), r=r, k_pad=k_pad,
-            symmetric=False, chunks=((0, int(cols_a.shape[1]), 0, nw),),
-            t_chunks=((0, int(t_cols_a.shape[1]), 0, nw_t),),
-            spans=spans, t_spans=t_spans,
-            span_pass_limit=span_pass_limit) for d in shards])
+            cols=dev(cols), vals=dev(vals), win=win_d, win_off=win_off,
+            t_cols=dev(t_cols), t_vals=dev(t_vals), t_win=t_win_d,
+            t_win_off=t_win_off, n_rows=rps, n_cols=n_cols_part,
+            nnz=int((vals != 0).sum()), r=r, k_pad=k_pad, symmetric=False,
+            chunks=((0, cols.shape[0], 0, nw),),
+            t_chunks=((0, t_cols.shape[0], 0, nw_t),),
+            spans=spans, t_spans=t_spans, span_pass_limit=span_pass_limit)
+            for (cols, vals), (t_cols, t_vals) in zip(fwd, bwd)])
     return parts[0], parts[1]
 
 

@@ -144,6 +144,15 @@ def test_pass_block_parts_equal_gcn_tpu(name, k_pad, r):
                                                 a.num_windows))
             assert a.nnz == int((a.vals != 0).sum())
             a.validate()
+    # a process that owns some shards lays out only those, identically
+    some = build_sharded_ell_blocks(sg, build_halo_plan_ragged(sg),
+                                    k_pad=k_pad, r=r, shards=[1, 3],
+                                    device="cpu")
+    for ours, sub in zip(parts, some):
+        for d, a in zip((1, 3), sub):
+            for f in ("cols", "vals", "win_off", "t_cols", "t_vals",
+                      "t_win_off"):
+                assert torch.equal(getattr(a, f), getattr(ours[d], f)), f
 
 
 @pytest.mark.parametrize("k_pad", [32, 128])
