@@ -90,7 +90,12 @@ Phases (each failure exits non-zero):
      median step from CUDA events and the test accuracy; its step under
      torch.profiler; 10 + 10 steps resumed through
      ``save_training_state`` against the 20 at rtol 1e-6; and K1's time in
-     each of the 8 uses beside ``torch.sparse.mm`` and the bound;
+     each of the 8 uses beside ``torch.sparse.mm`` and the bound. Between
+     the wires and the 20 steps, the sharded repairs: shard 0's parts
+     rebuilt with ``table_bf16`` (K1 against the float64 plain version of
+     bf16-rounded x, f32 tolerance), and 5 steps with ``with_relu=False``
+     against the unsharded functional GCN under the same flag (the
+     tolerances above);
  13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
@@ -104,13 +109,28 @@ Phases (each failure exits non-zero):
      epochs on each form, where the loss falls, the output is finite, test
      accuracy is above 0.5, and K1's launches equal the count reckoned from
      the code (``hgnn_launches``); and 10 + 10 epochs resumed across a
-     milestone at 5 against 20 at rtol 1e-6.
+     milestone at 5 against 20 at rtol 1e-6;
+ 14. [orders]: synth-arxiv after ``gcn_normalize``, each of the 9 reorder
+     methods (its host seconds and route, native or numpy), then the degree
+     sort and ``ell_adjacency(k_pad=32)`` on the card (slots, padding
+     share, the longest window walk); K1 forward at k=32 against its
+     float64 plain version at the f32 tolerance; K1's median of 30 calls
+     beside its plain version, ``torch.sparse.mm`` on the same CSR and the
+     bound;
+ 15. [train_gcn flags]: ``train_gcn.main`` on the card, synth-arxiv -k 32
+     -i 20 --variant v6 --reorder gorder --profile-ops --save-path P
+     --history-json H: the loss falls, K1 launches 4 + 2 x 20 + 1 times in
+     the fit and 4 a profile iteration, the profile's rows are gcn_tpu's
+     for the hoisted v6 orders, each finite and positive; then --load-path
+     P reaches the same test accuracy.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2, and K1 at HGNN's, the frequency split's and the sharded
 parts' shapes, each
-with the launches at its width of the run that uses it; every bound counts
-8 B a stored edge, not the layout's padding slots, and the operator's own
+with the launches at its width of the run that uses it, and K1 after each
+reorder method (``use`` names it; ``launches``: the [orders] phase's own
+calls, or the train_gcn fit's for gorder); every bound counts 8 B a stored
+edge, not the layout's padding slots, and the operator's own
 rows written), the nvidia-smi line again, and
 last ``{"ok": true, "device": {...}}``. Without a GPU, or
 without the repository beside it, it exits non-zero and prints no result.
@@ -874,6 +894,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     from gcn_tpu_torch.ops import ell_spmm as es
     from gcn_tpu_torch.parallel import (band_degree_sort_order,
                                         build_halo_plan_ragged,
+                                        build_sharded_ell_blocks,
                                         create_mesh,
                                         make_sharded_gcn_train_step,
                                         rows_per_shard_for,
@@ -1025,6 +1046,51 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
             if not np.isfinite(big[0]):
                 fail("the fp8 wire overflowed with features x 1e4")
 
+    print("[sharded repairs] shard 0's parts rebuilt with table_bf16: K1 "
+          "against the float64 plain version of bf16-rounded x, f32 "
+          "tolerance", flush=True)
+    bf16_parts = build_sharded_ell_blocks(sg, plan, k_pad=32,
+                                          table_bf16=True, shards=[0],
+                                          device=dev)
+    for name, part in zip(("interior", "halo"), bf16_parts):
+        a = part[0]
+        if not a.table_bf16:
+            fail(f"the {name} part lost table_bf16")
+        xk = torch.randn(a.n_cols, 32, device=dev, generator=gen)
+        before = es.spmm_ell_launches
+        got = es.spmm_ell(a, xk)
+        torch.cuda.synchronize()
+        if es.spmm_ell_launches != before + 1:
+            fail(f"table_bf16 {name} part: K1 did not launch once")
+        compare(f"table_bf16 {name} part fwd k=32", got,
+                es._ell_spmm_plain(xk.to(torch.bfloat16).double(), a.cols,
+                                   a.vals.double(), a.win, a.win_off,
+                                   a.n_rows))
+    del bf16_parts
+    print("[sharded repairs] with_relu=False, 5 steps, dropout 0: sharded "
+          "vs the unsharded functional GCN under the same flag", flush=True)
+    nr_step, nr_eval, nr_shard = make_sharded_gcn_train_step(
+        mesh, sg, dropout=0.0, with_relu=False, exchange_chunk=DIST_CHUNK,
+        k_pad=32)
+    nr_state = start(nr_shard)
+    nr_l, _ = fit(nr_step, nr_state, 5)
+    nr_lp = evaluate(nr_eval, nr_state)
+    res = fit_gcn(params_from_numpy(p0, dev), adam_l2,
+                  lambda p, train: gcn_forward(p, feats, uadj,
+                                               dropout_rate=0.0,
+                                               with_relu=False,
+                                               train=train),
+                  torch.as_tensor(labels, device=dev),
+                  torch.as_tensor(idx_train, device=dev), train_iters=5,
+                  timers=Timers(dev))
+    nr_want = [h["loss_train"] for h in res.history]
+    print(f"  sharded losses {nr_l}\n  unsharded losses {nr_want}",
+          flush=True)
+    check_close_losses("with_relu=False sharded vs unsharded", nr_l,
+                       nr_want, 1e-4)
+    compare("with_relu=False sharded vs unsharded eval log-probs", nr_lp,
+            res.log_probs, rtol=1e-5, atol=1e-4)
+
     steps = 20
     print(f"[dist main path] make_sharded_gcn_train_step, {steps} steps, "
           f"hidden {nhid}, dropout 0.5, seed {SEED}, exchange_chunk "
@@ -1104,6 +1170,168 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms})
     return rows
+
+
+def orders_phase(dev, data):
+    """K1 under every vertex order of gcn_tpu's reorder family, on
+    synth-arxiv after ``gcn_normalize``: each method's host seconds and
+    route, the degree-sorted ELL layout at k_pad 32, K1 forward at k = 32
+    against its float64 plain version, and K1's time beside its plain
+    version's, ``torch.sparse.mm``'s and the bound. Returns the methods'
+    ``kernels`` rows (``launches``: the phase's own K1 calls on that
+    layout)."""
+    import torch
+
+    from gcn_tpu_torch.graph.normalize import gcn_normalize
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.reorder import METHODS, reorder_graph, route
+    from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+
+    g0 = gcn_normalize(data.adj)
+    n = g0.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn(n, 32, device=dev, generator=gen)
+    print(f"[orders] synth-arxiv n={n} nnz={g0.nnz} after gcn_normalize: "
+          f"each method, then the degree sort and ell_adjacency(k_pad=32)",
+          flush=True)
+    rows = []
+    for method in METHODS:
+        t0 = time.time()
+        g, _ = reorder_graph(g0, method)
+        t_reorder = time.time() - t0
+        t0 = time.time()
+        g = g.permute(degree_sort_order(g))
+        adj = ell_adjacency(g, k_pad=32, symmetric=True, device=dev)
+        t_tile = time.time() - t0
+        blocks = adj.win_off.diff()
+        print(f"[orders] {method}: reorder {t_reorder:.2f} s on the host "
+              f"({route(method)} route); degree sort and tiling "
+              f"{t_tile:.2f} s; slots={adj.cols.numel()} "
+              f"pad={adj.pad_fraction:.3f} n_hub={adj.n_hub} longest "
+              f"window walk {int(blocks.max())} pass-blocks", flush=True)
+        cols, vals, win, win_off, n_out, n_in = k1_arrays(adj)
+        reset_launches()
+        err = compare(f"{method} fwd k=32, K1 vs plain",
+                      es.ell_spmm(x, cols, vals, win, win_off, n_out),
+                      es._ell_spmm_plain(x.double(), cols, vals.double(),
+                                         win, win_off, n_out))
+        ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
+                                              n_out), x, n_in, 30)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        plain_ms = time_chain(lambda v: es._ell_spmm_plain(
+            v, cols, vals, win, win_off, n_out), x, n_in, 3)
+        csr = csr_tensor(g, dev)
+        lib_ms = time_chain(lambda v: torch.sparse.mm(csr, v), x, n, 30)
+        bound_ms, bound_by = k1_bound(adj, 32)
+        print(f"[K1 timing] after {method}: K1 {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms | "
+              f"bound {bound_ms:.5f} ms ({100 * bound_ms / ms:.1f}% of it, "
+              f"by {bound_by})", flush=True)
+        rows.append({
+            "name": f"ell_spmm: synth-arxiv fwd k=32 after {method} and the "
+                    f"degree sort", "use": method, "route": "cuda",
+            "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
+            "replaces": K1_REPLACES, "launches": launches[0],
+            "launches_by_k": launches[1], "path": "[orders] phase",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "reorder_s": t_reorder, "reorder_route": route(method),
+            "slots": adj.cols.numel(), "pad_fraction": adj.pad_fraction,
+            "longest_walk": int(blocks.max())})
+        del adj, csr
+    best = min(rows, key=lambda r: r["ms"])
+    print(f"[orders] K1's best time is after {best['use']}: "
+          f"{best['ms']:.4f} ms (rabbit "
+          f"{next(r['ms'] for r in rows if r['use'] == 'rabbit'):.4f} ms)",
+          flush=True)
+    return rows
+
+
+# profile_ops' rows of v6 at hidden 32 and 40 classes: layer 1 hoisted (no
+# af row), layer 2 on (AX)W
+PROFILE_ROWS = ["l1_xw", "l1_bi", "l2_af", "l2_xw", "l2_bi", "fwd", "bwd"]
+
+
+def train_gcn_flags_phase(order_rows):
+    """``train_gcn.main`` on the card with the flags this slice adds:
+    synth-arxiv, v6 after gorder, 20 steps, --profile-ops, --save-path and
+    --history-json; then --load-path of the saved params. K1's launches
+    are read around the fit (up to the profile) and around the profile;
+    the gorder row of ``order_rows`` takes the fit's count."""
+    import tempfile
+
+    from gcn_tpu_torch import train_gcn
+    from gcn_tpu_torch.models import GCN
+
+    steps, method = 20, "gorder"
+    seen = {}
+    profile_ops = GCN.profile_ops
+
+    def profiled(self, *args, **kw):
+        seen["fit"] = read_launches()
+        reset_launches()
+        seen["timers"] = profile_ops(self, *args, **kw)
+        seen["profile"] = read_launches()
+        return seen["timers"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = os.path.join(tmp, "params.npz")
+        hist_path = os.path.join(tmp, "history.json")
+        argv = ["-g", "synth-arxiv", "-k", "32", "-i", str(steps),
+                "--variant", "v6", "--reorder", method]
+        shown = argv + ["--profile-ops", "--save-path", "P",
+                        "--history-json", "H"]
+        print(f"[train_gcn flags] train_gcn.main({shown})", flush=True)
+        GCN.profile_ops = profiled
+        try:
+            reset_launches()
+            acc = train_gcn.main(argv + ["--profile-ops", "--save-path",
+                                         params, "--history-json",
+                                         hist_path])
+        finally:
+            GCN.profile_ops = profile_ops
+        with open(hist_path) as f:
+            hist = json.load(f)
+        print("[train_gcn flags] --load-path P", flush=True)
+        loaded = train_gcn.main(argv + ["--load-path", params])
+    losses = [h["loss_train"] for h in hist["history"]]
+    fit_launches = seen["fit"]
+    expected = 4 + 2 * steps + 1
+    timers = seen["timers"]
+    profile_expected = (20 + 5) * 4     # l2_af, fwd, and bwd's two a row
+    print(f"[train_gcn flags] losses first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}; test accuracy {acc:.4f}, after --load-path "
+          f"{loaded:.4f}; history keys {sorted(hist)}", flush=True)
+    print(f"  K1 launches: fit {fit_launches[0]} by width "
+          f"{fit_launches[1]} (expected {expected} = 4 hoist + 2 x {steps} "
+          f"steps + 1 eval); profile {seen['profile'][0]} (expected "
+          f"{profile_expected})", flush=True)
+    print(f"  profile_ops rows {timers.names()}, median device ms: "
+          + ", ".join(f"{name} {timers(name).d.median_ms:.4f}"
+                      for name in timers.names()), flush=True)
+    if fit_launches[0] != expected:
+        fail(f"train_gcn fit: {fit_launches[0]} K1 launches, expected "
+             f"{expected}")
+    if seen["profile"][0] != profile_expected:
+        fail(f"profile_ops: {seen['profile'][0]} K1 launches, expected "
+             f"{profile_expected}")
+    if len(losses) != steps or not losses[-1] < losses[0]:
+        fail(f"train_gcn: {len(losses)} losses, {losses[0]} -> {losses[-1]}")
+    if timers.names() != PROFILE_ROWS:
+        fail(f"profile_ops rows {timers.names()}, expected {PROFILE_ROWS}")
+    for name in timers.names():
+        samples = timers(name).d.samples
+        if len(samples) != 20 or not all(
+                0 < v < float("inf") for v in samples):
+            fail(f"profile_ops row {name}: {samples}")
+    if loaded != acc:
+        fail(f"--load-path test accuracy {loaded} != the fit's {acc}")
+    for row in order_rows:
+        if row["use"] == method:
+            row["launches"], row["launches_by_k"] = fit_launches
+            row["path"] = (f"train_gcn -g synth-arxiv -k 32 -i {steps} "
+                           f"--variant v6 --reorder {method}")
 
 
 def gcn_resume_phase(dev, data, uninterrupted):
@@ -1577,6 +1805,8 @@ def main():
     freq_rows = freq_phases(dev, g, data, p0, hist["cuda"], adj)
     dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0)
     hgnn_rows = hgnn_phases(dev)
+    order_rows = orders_phase(dev, data)
+    train_gcn_flags_phase(order_rows)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1614,7 +1844,7 @@ def main():
         "heavy_ms": heavy_ms,
         "light_ms": light_ms,
         "heavy_windows": padj.heavy.numel(),
-    }] + hgnn_rows + freq_rows + dist_rows}))
+    }] + hgnn_rows + freq_rows + dist_rows + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

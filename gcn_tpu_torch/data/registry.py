@@ -1,15 +1,21 @@
-"""Dataset registry: the ``synth-*`` datasets.
+"""Dataset registry.
 
-``get_dataset(name, seed=...)`` returns a ``GraphData`` bundle built by the
-seeded generators in ``gcn_tpu_torch.data.synthetic``; for the same seed it
-equals ``gcn_tpu.data.get_dataset`` bit for bit. The HGNN ``.mat`` loader
-is ``data/hypergraph_mat.py``; the planetoid and GraphSAINT loaders are not
-ported yet (ROADMAP.md).
+``get_dataset(name, root=None, seed=...)`` returns a ``GraphData`` bundle;
+for the same name, files and seed it equals ``gcn_tpu.data.get_dataset``
+bit for bit. The ``synth-*`` datasets come from the seeded generators in
+``gcn_tpu_torch.data.synthetic``; the real ones are read from local files
+under ``root`` (default ``$GCN_TPU_DATA``, else ``~/gcn_data``) by
+``data/planetoid.py`` (cora, citeseer, cora_ml, polblogs, pubmed) and
+``data/graphsaint.py`` (flickr, ppi, amazon, reddit, yelp). Nothing is
+downloaded: a missing file raises ``FileNotFoundError``. The HGNN ``.mat``
+loader is ``data/hypergraph_mat.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import numpy as np
 
@@ -39,6 +45,22 @@ class GraphData:
     def num_features(self) -> int:
         return self.features.shape[1]
 
+    def masks(self):
+        """Boolean masks of the splits and one-hot labels zeroed outside
+        each split (the reference's ``Dataset(require_mask=True)``):
+        ``(train_mask, val_mask, test_mask, y_train, y_val, y_test)``, each
+        ``y_*`` an (n, C) matrix."""
+        n, c = self.num_nodes, self.num_classes
+        onehot = np.zeros((n, c), dtype=np.float32)
+        onehot[np.arange(n), self.labels] = 1.0
+        masks, ys = [], []
+        for idx in (self.idx_train, self.idx_val, self.idx_test):
+            m = np.zeros(n, dtype=bool)
+            m[np.asarray(idx)] = True
+            masks.append(m)
+            ys.append(np.where(m[:, None], onehot, 0.0))
+        return (*masks, *ys)
+
 
 # (n, classes, avg_degree, feat_dim, powerlaw[, feat_noise]), sized after
 # the pygcn reference's benchmark roster
@@ -60,18 +82,29 @@ _SYNTH_SPECS = {
 }
 
 
-def get_dataset(name: str, seed: int = 0, **kw) -> GraphData:
-    if name not in _SYNTH_SPECS:
-        raise KeyError(
-            f"unknown dataset {name!r}: the port has the synthetic datasets "
-            f"{sorted(_SYNTH_SPECS)}; the real-data loaders are not ported "
-            f"yet (ROADMAP.md)")
-    spec = _SYNTH_SPECS[name]
-    n, c, deg, f, powerlaw = spec[:5]
-    noise = spec[5] if len(spec) > 5 else 1.0
-    gen = synthetic.powerlaw_sbm if powerlaw else synthetic.sbm
-    adj, labels = gen(n=n, n_classes=c, avg_degree=deg, seed=seed, **kw)
-    feats = synthetic.class_features(labels, feat_dim=f, noise=noise,
-                                     seed=seed)
-    tr, va, te = synthetic.split_indices(labels, seed=seed)
-    return GraphData(name, adj, feats, labels, tr, va, te)
+def get_dataset(name: str, root: Optional[str] = None, seed: int = 0,
+                **kw) -> GraphData:
+    if name in _SYNTH_SPECS:
+        spec = _SYNTH_SPECS[name]
+        n, c, deg, f, powerlaw = spec[:5]
+        noise = spec[5] if len(spec) > 5 else 1.0
+        gen = synthetic.powerlaw_sbm if powerlaw else synthetic.sbm
+        adj, labels = gen(n=n, n_classes=c, avg_degree=deg, seed=seed, **kw)
+        feats = synthetic.class_features(labels, feat_dim=f, noise=noise,
+                                         seed=seed)
+        tr, va, te = synthetic.split_indices(labels, seed=seed)
+        return GraphData(name, adj, feats, labels, tr, va, te)
+
+    from gcn_tpu_torch.data import graphsaint, planetoid
+
+    if name in planetoid.NAMES:
+        return planetoid.load(name, root=root or _default_root(), **kw)
+    if name in graphsaint.NAMES:
+        return graphsaint.load(name, root=root or _default_root(), **kw)
+    raise KeyError(
+        f"unknown dataset {name!r}; synthetic options: {sorted(_SYNTH_SPECS)}"
+        f", real: {planetoid.NAMES + graphsaint.NAMES}")
+
+
+def _default_root() -> str:
+    return os.environ.get("GCN_TPU_DATA", os.path.expanduser("~/gcn_data"))

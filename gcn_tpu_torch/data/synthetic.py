@@ -6,6 +6,7 @@ the same seed gives bit-identical graphs, features and splits.
 
   * ``sbm``          — planted-partition stochastic block model.
   * ``powerlaw_sbm`` — degree-corrected SBM with Pareto degree weights.
+  * ``geometric``    — random geometric graph (spatial neighbours).
   * ``synthetic_visual_features`` — the HGNN stand-in for the
     ModelNet40/NTU2012 visual features (examples/train_hgnn.py).
 """
@@ -105,14 +106,62 @@ def powerlaw_sbm(n: int = 10000, n_classes: int = 10,
     return g, labels.astype(np.int64)
 
 
+def geometric(n: int = 10000, n_classes: int = 10, avg_degree: float = 14.0,
+              seed: int = 0,
+              shuffle: bool = True) -> Tuple[CSRGraph, np.ndarray]:
+    """Random geometric graph: vertices at uniform 2-D points, each edge from
+    a random vertex to a random vertex in the grid cell of a Gaussian
+    (sigma = r) step from it, so endpoints lie within ~2r. The
+    locality-rich class (road networks, meshes, point clouds); labels are
+    angular sectors of the plane, so a GCN can fit them."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, 2))
+    # spatial scale giving ~avg_degree neighbours within radius r
+    r = float(np.sqrt(avg_degree / (np.pi * n)))
+    nc = max(1, int(1.0 / r))
+
+    def cell_of(p):
+        cx = np.minimum((p[:, 0] * nc).astype(np.int64), nc - 1)
+        cy = np.minimum((p[:, 1] * nc).astype(np.int64), nc - 1)
+        return np.clip(cx, 0, nc - 1) * nc + np.clip(cy, 0, nc - 1)
+
+    cell = cell_of(pts)
+    order = np.argsort(cell, kind="stable").astype(np.int64)
+    starts = np.searchsorted(cell[order], np.arange(nc * nc + 1))
+    counts = np.diff(starts)
+
+    m = int(n * avg_degree / 2)
+    src = rng.integers(0, n, m)
+    tgt = pts[src] + rng.normal(0.0, r, (m, 2))
+    tc = cell_of(np.clip(tgt, 0.0, 1.0 - 1e-9))
+    have = counts[tc] > 0
+    src, tc = src[have], tc[have]
+    pick = starts[tc] + (rng.random(len(tc)) * counts[tc]).astype(np.int64)
+    dst = order[pick]
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+
+    ang = np.arctan2(pts[:, 1] - 0.5, pts[:, 0] - 0.5)
+    labels = ((ang + np.pi) / (2 * np.pi) * n_classes).astype(np.int64)
+    labels = np.minimum(labels, n_classes - 1)
+    if shuffle:
+        src, dst, labels = _shuffle(rng, n, src, dst, labels)
+    g = coo_to_csr(src, dst, None, (n, n)).symmetrize(binarize=True)
+    return g, labels.astype(np.int64)
+
+
 def class_features(labels: np.ndarray, feat_dim: int = 64,
-                   noise: float = 1.0, seed: int = 0) -> np.ndarray:
-    """Dense features = class centroid + N(0, noise)."""
+                   noise: float = 1.0, seed: int = 0,
+                   sparsity: float = 0.0) -> np.ndarray:
+    """Dense features = class centroid + N(0, noise); each element is then
+    zeroed with probability ``sparsity``."""
     rng = np.random.default_rng(seed + 17)
     n_classes = int(labels.max()) + 1
     centroids = rng.normal(size=(n_classes, feat_dim))
     x = centroids[labels] + noise * rng.normal(size=(labels.shape[0],
                                                      feat_dim))
+    if sparsity > 0:
+        x = np.where(rng.random(x.shape) < sparsity, 0.0, x)
     return x.astype(np.float32)
 
 

@@ -60,8 +60,18 @@ class CSRGraph:
     def row_degrees(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int64)
 
+    def col_degrees(self) -> np.ndarray:
+        return np.bincount(self.indices,
+                           minlength=self.shape[1]).astype(np.int64)
+
     def to_coo(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         return csr_to_coo(self)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((self.data, self.indices, self.indptr),
+                             shape=self.shape)
 
     def to_dense(self) -> np.ndarray:
         out = np.zeros(self.shape, dtype=np.float32)

@@ -16,7 +16,9 @@ Everything runs on ``device``: the card (``cuda``) unless the caller passes
 original vertex order. ``save_state`` and ``fit(..., resume_from=path)``
 continue a run across processes and across the two packages
 (``utils.checkpoint``); ``adj_options={"freq_split": True}`` trains over the
-frequency-split tables (``tile/freq_split.py``).
+frequency-split tables (``tile/freq_split.py``). ``profile_ops`` prints the
+per-op table (xw, af, bi of each layer, forward, backward) of a fitted
+model.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.models.gcn_core import gcn_forward, init_gcn_params
 from gcn_tpu_torch.models.layers import auto_order
 from gcn_tpu_torch.ops.adjacency import device_adjacency
-from gcn_tpu_torch.ops.spmm import hoist_spmm
+from gcn_tpu_torch.ops.permute import inverse_permutation
+from gcn_tpu_torch.ops.spmm import hoist_spmm, spmm
 from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.metrics import accuracy, masked_nll
 from gcn_tpu_torch.train.optim import adam_l2
@@ -53,12 +56,6 @@ def _as_dense_features(x) -> np.ndarray:
     if hasattr(x, "todense"):
         x = np.asarray(x.todense())
     return np.asarray(x, dtype=np.float32)
-
-
-def _inverse(perm: np.ndarray) -> np.ndarray:
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.shape[0])
-    return inv
 
 
 class GCN:
@@ -198,21 +195,29 @@ class GCN:
             train_iters: int = 200, initialize: bool = True,
             verbose: bool = False, normalize: bool = True,
             patience: int = 500, mode: str = "auto",
+            name: str = "dataset", dump_adj_csv: Optional[str] = None,
             resume_from: Optional[str] = None):
         """Train; ``resume_from`` continues from a ``save_state`` checkpoint
         of either package (params, Adam state, iteration count and, from
-        this package on the same device type, the dropout stream)."""
+        this package on the same device type, the dropout stream).
+        ``dump_adj_csv`` names a directory to write the normalized
+        adjacency to, as ``<name>.csv`` (``utils/writecsv.py``), before any
+        reordering."""
         g = _as_csr(adj)
         x = _as_dense_features(features)
         labels_np = np.asarray(labels)
         if normalize:
             g = gcn_normalize(g)
+        if dump_adj_csv:
+            from gcn_tpu_torch.utils.writecsv import write as write_csv
+
+            write_csv(g, name, dump_adj_csv)
 
         self.perm = self._inv_perm = None
         adj_dev, perm = self._build_adjacency(g, normalized=normalize)
         if perm is not None:
             self.perm = perm
-            self._inv_perm = _inverse(perm)
+            self._inv_perm = inverse_permutation(perm)
             x = x[perm]
             labels_np = labels_np[perm]
         self.adj_norm = adj_dev
@@ -299,8 +304,68 @@ class GCN:
                              dropout_rate=self.dropout,
                              with_relu=self.with_relu, train=False)
         if perm is not None:
-            lp = lp[torch.as_tensor(_inverse(perm), device=self.device)]
+            lp = lp[torch.as_tensor(inverse_permutation(perm),
+                                    device=self.device)]
         return lp
+
+    def profile_ops(self, n_iters: int = 20, warmup: int = 5,
+                    verbose: bool = True) -> Timers:
+        """Per-op timing table of the v5/v6 instrumentation: xw (X@W), af
+        (the SpMM aggregation) and bi (bias) of each layer, then the whole
+        forward and backward, under this variant's contraction orders and
+        hoisted features (a hoisted layer 1 has no af row: its SpMM ran in
+        preprocessing). Each op runs alone and is timed with the device
+        timers (``utils/timers.py``: CUDA events on the card, the host
+        clock on the CPU), so the rows are per-op upper bounds. Rows keep
+        the first ``warmup`` iterations out; returns the timers."""
+        if self.params is None or self.adj_norm is None:
+            raise RuntimeError("call fit() first")
+        t = Timers(self.device)
+        adj = self.adj_norm
+        orders = self._orders()
+        feats = self._hoisted_ax if orders[0] == "xw" else self.features
+        p = {name: {k: v.detach().requires_grad_(True)
+                    for k, v in layer.items()}
+             for name, layer in self.params.items()}
+        leaves = [v for layer in p.values() for v in layer.values()]
+
+        def layer(prefix, h, w, b, order):
+            if order == "ax_w":            # (A h) W
+                with t(f"{prefix}_af").d:
+                    h = spmm(adj, h)
+                with t(f"{prefix}_xw").d:
+                    h = torch.matmul(h, w)
+            else:                          # A (h W); "xw" = hoisted, no af
+                with t(f"{prefix}_xw").d:
+                    h = torch.matmul(h, w)
+                if order == "a_xw":
+                    with t(f"{prefix}_af").d:
+                        h = spmm(adj, h)
+            if b is not None:
+                with t(f"{prefix}_bi").d:
+                    h = h + b
+            return h
+
+        def fwd():
+            return gcn_forward(p, feats, adj, adj, orders=orders,
+                               dropout_rate=0.0, with_relu=self.with_relu,
+                               train=False)
+
+        for i in range(n_iters + warmup):
+            if i == warmup:
+                t.reset()
+            with torch.no_grad():
+                h = layer("l1", feats, p["gc1"]["w"], p["gc1"].get("b"),
+                          orders[0])
+                h = torch.relu(h)
+                layer("l2", h, p["gc2"]["w"], p["gc2"].get("b"), orders[1])
+                with t("fwd").d:
+                    fwd()
+            with t("bwd").d:
+                torch.autograd.grad(fwd().sum(), leaves)
+        if verbose:
+            print(t.report())
+        return t
 
     def save_state(self, path: str) -> None:
         """Save the full resumable training state (last-iterate params,

@@ -162,14 +162,15 @@ def build_halo_plan_ragged(sg: ShardedGraph) -> RaggedHaloPlan:
 # ---------------------------------------------------------------------------
 
 
-def _fit_counts(counts: np.ndarray) -> np.ndarray:
+def _fit_counts(counts: np.ndarray, budget: int = None) -> np.ndarray:
     """Make a per-window block-count sequence span-budget-friendly:
     identity if its runs already fit, else the nonincreasing envelope
-    (reverse cummax) laddered to the segment budget (tile/ell.py)."""
+    (reverse cummax) laddered to the segment budget (tile/ell.py);
+    ``budget`` tightens the default budget of 48 segments."""
     from gcn_tpu_torch.tile.ell import (_MAX_REDUCE_SEGMENTS, _pass_runs,
                                         _quantize_passes)
 
-    budget = _MAX_REDUCE_SEGMENTS
+    budget = budget or _MAX_REDUCE_SEGMENTS
     if (len(np.unique(counts)) <= budget
             and _pass_runs(counts) <= budget):
         return counts
@@ -180,7 +181,11 @@ def _fit_counts(counts: np.ndarray) -> np.ndarray:
 
 
 def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
-                             r: int = None, k_pad: int = 32, shards=None,
+                             r: int = None, k_pad: int = 32,
+                             span_pass_limit: int = None,
+                             products_bf16: bool = False,
+                             table_bf16: bool = False,
+                             part_segment_budget: int = None, shards=None,
                              device=None):
     """Pass-block partition of each band's lockstep layout:
     ``(interior, halo)``, two lists with one ``EllAdj`` per shard of
@@ -202,8 +207,11 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
     keeps it so that its arrays equal gcn_tpu's. Hub rows are not split.
     Each shard's ``EllAdj`` carries its own ``win_off`` / ``t_win_off``
     and its own stored-edge count ``nnz``. The span plans (metadata that
-    steers nothing on the card) follow gcn_tpu's span limit, including its
-    GCN_TPU_SPAN_LIMIT override, so that they equal gcn_tpu's.
+    steers nothing on the card) follow ``span_pass_limit``, else the
+    GCN_TPU_SPAN_LIMIT environment variable, else k_pad / 2, as gcn_tpu's
+    do (0 or less: no limit). ``products_bf16`` and ``table_bf16`` are
+    K1's two bf16 options, carried by every part. ``part_segment_budget``
+    tightens ``_fit_counts``' budget for the two parts' forward counts.
     """
     from gcn_tpu_torch.graph.csr import coo_to_csr
     from gcn_tpu_torch.tile.ell import (DEFAULT_R, EllAdj, _ell_arrays,
@@ -217,8 +225,10 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
     if r is None:
         r = DEFAULT_R if rps >= DEFAULT_R else max(8, rps // 8 * 8)
     p = 128 // k_pad
-    env = os.environ.get("GCN_TPU_SPAN_LIMIT")
-    span_pass_limit = int(env) if env is not None else max(1, k_pad // 2)
+    if span_pass_limit is None:
+        env = os.environ.get("GCN_TPU_SPAN_LIMIT")
+        span_pass_limit = (int(env) if env is not None
+                           else max(1, k_pad // 2))
     if span_pass_limit <= 0:
         span_pass_limit = 1 << 30
     halo_cols = plan.halo_rows
@@ -247,8 +257,8 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
         hd[:rps] = halo_deg[d]
         hb = np.maximum(hb, -(-hd.reshape(nw, r).max(axis=1) // p))
     hb = np.minimum(hb, pf)
-    hp = _fit_counts(np.maximum(hb, 1))          # halo part
-    ip = _fit_counts(np.maximum(pf - hb, 1))     # interior part
+    hp = _fit_counts(np.maximum(hb, 1), part_segment_budget)       # halo
+    ip = _fit_counts(np.maximum(pf - hb, 1), part_segment_budget)  # interior
 
     def split_edges(d, which):
         """(rows, slot j within its part's row, column, value) of shard d's
@@ -321,9 +331,11 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan: RaggedHaloPlan, *,
             t_cols=dev(t_cols), t_vals=dev(t_vals), t_win=t_win_d,
             t_win_off=t_win_off, n_rows=rps, n_cols=n_cols_part,
             nnz=int((vals != 0).sum()), r=r, k_pad=k_pad, symmetric=False,
+            products_bf16=products_bf16,
             chunks=((0, cols.shape[0], 0, nw),),
             t_chunks=((0, t_cols.shape[0], 0, nw_t),),
-            spans=spans, t_spans=t_spans, span_pass_limit=span_pass_limit)
+            spans=spans, t_spans=t_spans, table_bf16=table_bf16,
+            span_pass_limit=span_pass_limit)
             for (cols, vals), (t_cols, t_vals) in zip(fwd, bwd)])
     return parts[0], parts[1]
 

@@ -83,10 +83,12 @@ def make_sharded_gcn_train_step(
     sg: ShardedGraph,
     *,
     dropout: float = 0.5,
+    with_relu: bool = True,
     exchange: str = "halo",
     kernel: str = None,
     overlap=True,
     model_axis: str = None,
+    with_bias: bool = True,
     exchange_dtype: str = None,
     exchange_chunk="auto",
     k_pad: int = 32,
@@ -103,6 +105,12 @@ def make_sharded_gcn_train_step(
     ``rng = (seed, iteration)``, and returns the global loss (a 0-dim
     tensor). ``eval_fn(params, adj, xs)`` returns the owned bands'
     log-probs, stacked.
+
+    ``with_relu=False`` drops layer 1's relu, and with it the dropout,
+    which applies only after the relu, as in gcn_tpu. Each bias is added
+    when ``params`` holds one; ``with_bias`` states whether they do
+    (gcn_tpu needs it for the model axis's parameter specs, which the port
+    does not have).
     """
     if exchange not in _EXCHANGES:
         raise ValueError(f"exchange must be one of {_EXCHANGES}")
@@ -189,11 +197,12 @@ def make_sharded_gcn_train_step(
         for shard, h in zip(owned, layer(adj, xs, w1)):
             if b1 is not None:
                 h = h + b1
-            h = torch.relu(h)
-            if train and dropout > 0:
-                gen = torch.Generator(device=dev).manual_seed(
-                    band_seed(*rng, shard))
-                h = dropout_fn(gen, h, dropout, train=True)
+            if with_relu:
+                h = torch.relu(h)
+                if train and dropout > 0:
+                    gen = torch.Generator(device=dev).manual_seed(
+                        band_seed(*rng, shard))
+                    h = dropout_fn(gen, h, dropout, train=True)
             hs.append(h)
         out = layer(adj, hs, w2)
         if b2 is not None:

@@ -1,5 +1,5 @@
-"""Loss and evaluation metrics (F.nll_loss on log_softmax outputs and the
-reference's utils.accuracy)."""
+"""Loss and evaluation metrics (F.nll_loss on log_softmax outputs, the
+reference's utils.accuracy, and micro-F1)."""
 
 from __future__ import annotations
 
@@ -18,3 +18,8 @@ def accuracy(log_probs: torch.Tensor, labels: torch.Tensor,
         log_probs = log_probs[idx]
         labels = labels[idx]
     return (log_probs.argmax(dim=1) == labels).float().mean()
+
+
+def micro_f1(pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Micro-averaged F1 for single-label predictions (== accuracy)."""
+    return (pred == labels).float().mean()

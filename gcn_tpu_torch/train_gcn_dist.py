@@ -27,6 +27,8 @@ import os
 import sys
 import time
 
+from gcn_tpu_torch.reorder import METHODS
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
@@ -50,9 +52,9 @@ def main(argv=None):
     ap.add_argument("--no-overlap", action="store_true",
                     help="the monolithic layout without overlap (not "
                          "ported yet)")
-    ap.add_argument("--reorder", default="rabbit",
-                    help="identity|degree|rabbit (rabbit shrinks the halo; "
-                         "the in-band degree sort is composed after it)")
+    ap.add_argument("--reorder", default="rabbit", choices=METHODS,
+                    help="vertex reorder (rabbit shrinks the halo; the "
+                         "in-band degree sort is composed after it)")
     ap.add_argument("--exchange-chunk", type=int, default=32,
                     help="k-chunk the exchange and the halo aggregation at "
                          "layer widths past this (0 = one piece)")

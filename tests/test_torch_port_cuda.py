@@ -637,3 +637,68 @@ def test_sharded_fit_on_card_matches_cpu(cuda):
     assert k1_card == 4 * (2 * 10 + 5)
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
     torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)
+
+
+def _reordered_graph(method, n=2000):
+    """A heavy-tailed community graph after ``method``, then the degree
+    sort, as the v6 pipeline lays it out."""
+    from gcn_tpu_torch.data.synthetic import powerlaw_sbm
+    from gcn_tpu_torch.reorder import reorder_graph
+
+    g, _ = powerlaw_sbm(n=n, n_classes=6, avg_degree=12.0, seed=13)
+    g, _ = reorder_graph(gcn_normalize(g), method)
+    return g.permute(degree_sort_order(g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["identity", "degree", "degree_in",
+                                    "degree_out", "dfs", "rcm", "gorder",
+                                    "gorder3", "rabbit"])
+@pytest.mark.parametrize("k", [8, 32])
+def test_kernel_after_each_order_on_card(cuda, method, k):
+    """K1 on the layout every reorder method gives, forward and through
+    the transpose arrays, against its float64 plain version; the SpMM with
+    its hub epilogue against the dense product."""
+    g = _reordered_graph(method)
+    adj = ell_adjacency(g, k_pad=32, symmetric=True, device=cuda)
+    x = torch.randn(g.shape[0], k, device=cuda)
+    for t in (False, True):
+        cols, vals, win, win_off, n_out = _ell_arrays(adj, t)
+        _close(es.ell_spmm(x, cols, vals, win, win_off, n_out),
+               es._ell_spmm_plain(x.double(), cols, vals.double(), win,
+                                  win_off, n_out).float())
+    dense = torch.tensor(g.to_dense(), device=cuda, dtype=torch.float64)
+    _close(es.spmm_ell(adj, x), (dense @ x.double()).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["table_bf16", "products_bf16"])
+@pytest.mark.parametrize("part", ["interior", "halo"])
+def test_kernel_on_sharded_parts_with_bf16_on_card(cuda, option, part):
+    """``build_sharded_ell_blocks``' bf16 flags reach K1 on every shard's
+    part: table_bf16 against the float64 plain version of bf16-rounded x
+    at the f32 tolerance, products_bf16 against its plain version at 2e-2
+    (a bf16 ulp can flip)."""
+    from gcn_tpu_torch.parallel import (build_halo_plan_ragged,
+                                        build_sharded_ell_blocks)
+
+    _, sg, _, _, _ = _sharded_problem("cpu")
+    parts = build_sharded_ell_blocks(sg, build_halo_plan_ragged(sg),
+                                     k_pad=32, device=cuda,
+                                     **{option: True})
+    for a in parts[part == "halo"]:
+        assert getattr(a, option)
+        x = torch.randn(a.n_cols, 32, device=cuda)
+        before = es.spmm_ell_launches
+        got = es.spmm_ell(a, x)
+        torch.cuda.synchronize()
+        assert es.spmm_ell_launches == before + 1
+        if option == "table_bf16":
+            want = es._ell_spmm_plain(x.to(torch.bfloat16).double(), a.cols,
+                                      a.vals.double(), a.win, a.win_off,
+                                      a.n_rows).float()
+            _close(got, want)
+        else:
+            want = es._ell_spmm_plain(x, a.cols, a.vals, a.win, a.win_off,
+                                      a.n_rows, True)
+            torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)

@@ -1,6 +1,7 @@
 """The port's host pipeline equals gcn_tpu's: datasets, normalization,
-reordering and the ELL tiler give the same arrays (synth-tiny and
-synth-pubmed; k_pad 32 and 128; with and without hub splitting)."""
+reordering (every method, native and numpy) and the ELL tiler give the same
+arrays (synth-tiny and synth-pubmed; k_pad 32 and 128; with and without hub
+splitting)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ from gcn_tpu.tile.ell import ell_adjacency as jx_ell
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.graph.csr import CSRGraph
 from gcn_tpu_torch.graph.normalize import gcn_normalize
-from gcn_tpu_torch.reorder import compute_permutation, reorder_graph
+from gcn_tpu_torch.reorder import METHODS, compute_permutation, reorder_graph
 from gcn_tpu_torch.reorder import native
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
 
@@ -73,13 +74,21 @@ def test_dataset_and_normalize_bit_equal(name):
     _csr_equal(gcn_normalize(ours.adj), jx_normalize(ref.adj))
 
 
-@pytest.mark.parametrize("name", DATASETS)
-@pytest.mark.parametrize("method", ["rabbit", "degree"])
+def _normalized(name):
+    """(port graph, jax graph) of ``name`` after gcn_normalize."""
+    if name in DATASETS + ("synth-cora-hard",):
+        return (gcn_normalize(get_dataset(name, seed=0).adj),
+                jx_normalize(jx_get_dataset(name, seed=0).adj))
+    g, jg = _graphs(name)
+    return gcn_normalize(g), jx_normalize(jg)
+
+
+@pytest.mark.parametrize("name", DATASETS + ("synth-cora-hard", POWERLAW))
+@pytest.mark.parametrize("method", METHODS)
 def test_reorder_permutation_equal(name, method):
     if not (native.available() and jx_native.available()):
         pytest.skip("a native reorder library did not build")
-    g = gcn_normalize(get_dataset(name, seed=0).adj)
-    jg = jx_normalize(jx_get_dataset(name, seed=0).adj)
+    g, jg = _normalized(name)
     perm = compute_permutation(g, method)
     np.testing.assert_array_equal(perm, jx_permutation(jg, method))
     g2, perm2 = reorder_graph(g, method)
@@ -87,16 +96,18 @@ def test_reorder_permutation_equal(name, method):
     _csr_equal(g2, jg.permute(perm))
 
 
-def test_numpy_fallbacks_match_reference_numpy():
+@pytest.mark.parametrize("method", METHODS)
+def test_numpy_fallbacks_match_reference_numpy(method):
     """The numpy passes (used where no host compiler exists) equal
-    gcn_tpu's numpy passes, and the numpy permute equals the native one."""
-    g = gcn_normalize(get_dataset("synth-tiny", seed=0).adj)
-    jg = jx_normalize(jx_get_dataset("synth-tiny", seed=0).adj)
-    for method in ("rabbit", "degree"):
+    gcn_tpu's numpy passes, on synth-tiny and the powerlaw graph, and the
+    numpy permute equals the native one."""
+    for name in ("synth-tiny", POWERLAW):
+        g, jg = _normalized(name)
         np.testing.assert_array_equal(
             compute_permutation(g, method, prefer_native=False),
-            jx_permutation(jg, method, prefer_native=False))
-    perm = compute_permutation(g, "rabbit", prefer_native=False)
+            jx_permutation(jg, method, prefer_native=False), err_msg=name)
+    g, _ = _normalized("synth-tiny")
+    perm = compute_permutation(g, method, prefer_native=False)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.shape[0])
     r, c, v = g.to_coo()

@@ -3,7 +3,9 @@ against gcn_tpu's (``gcn_tpu.parallel``), on the CPU.
 
 Host structures are array-equal: the row partition, the in-band degree
 sort, the ragged halo plan and both parts of the pass-block ELL layout, in
-both directions, shard by shard (an empty band among the cases). The
+both directions, shard by shard (an empty band among the cases; also with
+each of the layout's options: the span limit, the parts' segment budget,
+the bf16 flags). The
 sharded step matches gcn_tpu's on a 4-device mesh at dropout 0: per-step
 losses at rtol 1e-4, eval log-probs at atol 1e-4 + rtol 1e-5 (the parity
 tolerances of tests/test_torch_port_model.py; f32 sums in other orders).
@@ -12,7 +14,8 @@ atol 0.02), and agree with gcn_tpu's same wire at the loss tolerance (a
 bf16 rounding can flip one ulp where the f32 values it rounds differ in
 their last bit, so eval log-probs there hold at atol 1e-3). Two gloo
 processes of two shards each match one process of four at rtol 1e-5, and
-the dist CLI resumes exactly.
+the dist CLI resumes exactly. ``with_relu`` and ``with_bias`` match
+gcn_tpu's, in one process and in two.
 """
 
 import dataclasses
@@ -155,6 +158,59 @@ def test_pass_block_parts_equal_gcn_tpu(name, k_pad, r):
                 assert torch.equal(getattr(a, f), getattr(ours[d], f)), f
 
 
+# the options gcn_tpu's build_sharded_ell_blocks takes: the span limit off
+# (0), a segment budget tighter than the parts' 48, each bf16 flag
+PART_OPTIONS = {
+    "span_pass_limit_0": dict(span_pass_limit=0),
+    "span_pass_limit_3": dict(span_pass_limit=3),
+    "part_segment_budget_8": dict(part_segment_budget=8),
+    "products_bf16": dict(products_bf16=True),
+    "table_bf16": dict(table_bf16=True),
+}
+
+
+@pytest.mark.parametrize("option", list(PART_OPTIONS))
+def test_pass_block_parts_options_equal_gcn_tpu(option):
+    """Each option gives gcn_tpu's arrays and fields, shard by shard; the
+    bf16 flags ride on every part, and the budget of 8 cuts the parts'
+    forward counts to at most 8 runs."""
+    kw = PART_OPTIONS[option]
+    jg = GRAPHS["powerlaw"]()
+    sg = shard_graph_by_rows(_port(jg), NS)
+    jsg = jx_part.shard_graph_by_rows(jg, NS)
+    parts = build_sharded_ell_blocks(sg, build_halo_plan_ragged(sg), r=8,
+                                     device="cpu", **kw)
+    refs = jx_blocks(jsg, jx_plan(jsg), r=8, **kw)
+    for ours, ref in zip(parts, refs):
+        for d, a in enumerate(ours):
+            for f in ("cols", "vals", "win", "t_cols", "t_vals", "t_win"):
+                np.testing.assert_array_equal(
+                    getattr(a, f).numpy(), np.asarray(getattr(ref, f))[d], f)
+            for f in ("spans", "t_spans", "chunks", "t_chunks",
+                      "span_pass_limit", "products_bf16", "table_bf16"):
+                assert getattr(a, f) == getattr(ref, f), f
+            a.validate()
+        if option == "part_segment_budget_8":
+            runs = np.count_nonzero(np.diff(ours[0].win_off.diff().numpy()))
+            assert runs + 1 <= 8
+    if option.startswith("span_pass_limit"):
+        assert parts[0][0].span_pass_limit == (
+            1 << 30 if kw["span_pass_limit"] == 0 else 3)
+
+
+def test_pass_block_parts_span_limit_argument_beats_env(monkeypatch):
+    """The argument comes first, GCN_TPU_SPAN_LIMIT second, as in
+    gcn_tpu."""
+    sg = shard_graph_by_rows(_port(_powerlaw_graph()), NS)
+    plan = build_halo_plan_ragged(sg)
+    monkeypatch.setenv("GCN_TPU_SPAN_LIMIT", "2")
+    from_env = build_sharded_ell_blocks(sg, plan, r=8, device="cpu")
+    given = build_sharded_ell_blocks(sg, plan, r=8, span_pass_limit=5,
+                                     device="cpu")
+    assert from_env[0][0].span_pass_limit == 2
+    assert given[0][0].span_pass_limit == 5
+
+
 @pytest.mark.parametrize("k_pad", [32, 128])
 def test_pass_block_parts_sum_to_the_product(k_pad):
     """interior @ band + halo @ concat(halo table, band) == A @ x, shard by
@@ -236,11 +292,12 @@ def test_overlap_blocks_spmm_matches_segment_sum():
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
-def _problem(nhid=40):
+def _problem(nhid=40, with_bias=True):
     jg, labels = _sbm_graph()
     x = class_features(labels, feat_dim=16, seed=3)
     p0 = jax.tree_util.tree_map(np.asarray,
-                                jx_init(jax.random.PRNGKey(0), 16, nhid, 4))
+                                jx_init(jax.random.PRNGKey(0), 16, nhid, 4,
+                                        with_bias=with_bias))
     return jg, x, labels, np.ones(jg.shape[0], np.float32), p0
 
 
@@ -295,6 +352,30 @@ def test_sharded_step_matches_gcn_tpu(config):
                               **CONFIGS[config])
     np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=0)
     np.testing.assert_allclose(got_lp, want_lp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("with_relu,with_bias", [(False, False),
+                                                 (False, True),
+                                                 (True, False)])
+def test_relu_and_bias_flags_match_gcn_tpu(with_relu, with_bias):
+    """``with_relu`` and ``with_bias`` as gcn_tpu means them, at dropout 0
+    (the parameters hold a bias exactly when ``with_bias``)."""
+    jg, x, labels, mask, p0 = _problem(with_bias=with_bias)
+    kw = dict(with_relu=with_relu, with_bias=with_bias, exchange_chunk=16)
+    want_l, want_lp = _jax_run(jg, x, labels, mask, p0, **kw)
+    got_l, got_lp = _port_run(_port(jg), x, labels, mask, p0, **kw)
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(got_lp, want_lp, rtol=1e-5, atol=1e-4)
+
+
+def test_without_relu_no_dropout_is_drawn():
+    """Dropout applies only after the relu: without it, dropout 0.5 gives
+    the dropout-0 run."""
+    jg, x, labels, mask, p0 = _problem()
+    runs = [_port_run(_port(jg), x, labels, mask, p0, dropout=rate,
+                      with_relu=False) for rate in (0.0, 0.5)]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("wire", ["bf16", "fp8"])
@@ -457,15 +538,21 @@ from gcn_tpu_torch.utils.checkpoint import named_leaves
 import torch
 
 coord, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+kw = json.loads(sys.argv[4])
+p0 = kw.pop("params", None)
 mesh = initialize_multihost(coord, world, rank, n_shards=4, device="cpu")
 adj, labels = sbm(n=256, n_classes=4, avg_degree=8.0, seed=3)
 g = gcn_normalize(adj)
 x = class_features(labels, feat_dim=16, seed=3)
 step, eval_fn, shard_fn = make_sharded_gcn_train_step(
-    mesh, shard_graph_by_rows(g, 4), dropout=0.5, exchange_chunk=16)
+    mesh, shard_graph_by_rows(g, 4), exchange_chunk=16, **kw)
 a, xs, ys, ms = shard_fn(x, labels, np.ones(256, np.float32))
-params = init_gcn_params(torch.Generator().manual_seed(0), 16, 40, 4,
-                         device="cpu")
+if p0 is None:
+    params = init_gcn_params(torch.Generator().manual_seed(0), 16, 40, 4,
+                             device="cpu")
+else:
+    params = {l: {k: torch.tensor(v, dtype=torch.float32)
+                  for k, v in layer.items()} for l, layer in p0.items()}
 leaves = [t.requires_grad_(True) for _, t in named_leaves(params)]
 opt = adam_l2(leaves, 0.01, 5e-4)
 losses = [float(step(params, opt, (8, i), a, xs, ys, ms)) for i in range(4)]
@@ -474,12 +561,14 @@ print("EVAL", json.dumps(eval_fn(params, a, xs).tolist()))
 """
 
 
-def test_two_gloo_processes_match_one_process():
-    """Two processes of two shards each (gloo point-to-point exchanges,
-    all-reduced gradients) against one process of four, dropout 0.5."""
+def _gloo_run(**kw):
+    """Two gloo worker processes of two shards each with the step options
+    ``kw`` (``params``: numpy parameters to start from); returns each
+    rank's losses and the concatenated eval log-probs."""
     coord = f"127.0.0.1:{_free_port()}"
+    arg = json.dumps(kw, default=lambda a: np.asarray(a).tolist())
     procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, coord, "2", str(rank)], cwd=REPO,
+        [sys.executable, "-c", WORKER, coord, "2", str(rank), arg], cwd=REPO,
         env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for rank in (0, 1)]
     outs = []
@@ -496,6 +585,13 @@ def test_two_gloo_processes_match_one_process():
               for o in outs]
     lp = np.concatenate([json.loads(re.search(r"EVAL (\[.*\])", o).group(1))
                          for o in outs])
+    return losses, lp
+
+
+def test_two_gloo_processes_match_one_process():
+    """Two processes of two shards each (gloo point-to-point exchanges,
+    all-reduced gradients) against one process of four, dropout 0.5."""
+    losses, lp = _gloo_run(dropout=0.5)
     assert losses[0] == losses[1]
 
     from gcn_tpu_torch.data.synthetic import class_features as t_features
@@ -513,6 +609,19 @@ def test_two_gloo_processes_match_one_process():
                               dropout=0.5, exchange_chunk=16)
     np.testing.assert_allclose(losses[0], want, rtol=1e-5, atol=0)
     np.testing.assert_allclose(lp, want_lp, rtol=1e-5, atol=1e-5)
+
+
+def test_two_gloo_processes_without_relu_and_bias_match_gcn_tpu():
+    """``with_relu=False, with_bias=False`` over two gloo processes of two
+    shards against gcn_tpu's four-device step, dropout 0."""
+    jg, x, labels, mask, p0 = _problem(with_bias=False)
+    kw = dict(with_relu=False, with_bias=False, exchange_chunk=16)
+    want_l, want_lp = _jax_run(jg, x, labels, mask, p0, steps=4, **kw)
+    losses, lp = _gloo_run(dropout=0.0, with_relu=False, with_bias=False,
+                           params=p0)
+    assert losses[0] == losses[1]
+    np.testing.assert_allclose(losses[0], want_l, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(lp, want_lp, rtol=1e-5, atol=1e-4)
 
 
 def _cli(args, env=None, timeout=240):

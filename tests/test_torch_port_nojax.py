@@ -1,7 +1,8 @@
 """gcn_tpu_torch imports, trains GCN and HGNN (both forms of G), runs the
-panel and frequency-split SpMMs, saves and resumes a training state, and
-takes sharded training steps over two row bands, with jax and gcn_tpu
-blocked."""
+panel and frequency-split SpMMs, saves and resumes a training state, takes
+sharded training steps over two row bands, imports the host modules
+(loaders, CSV dumps, row analysis, artifacts, profiling), reorders by
+gorder and profiles a fitted model's ops, with jax and gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -81,6 +82,21 @@ opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
 losses = [float(step(params, opt, (1, i), a, xs, ys, ms)) for i in range(2)]
 assert np.isfinite(losses).all() and len(losses) == 2
 assert eval_fn(params, a, xs).shape[1] == data.num_classes
+import gcn_tpu_torch.analysis.rows, gcn_tpu_torch.data.graphsaint
+import gcn_tpu_torch.data.planetoid, gcn_tpu_torch.ops.permute
+import gcn_tpu_torch.utils.artifacts, gcn_tpu_torch.utils.profiling
+import gcn_tpu_torch.utils.writecsv
+from gcn_tpu_torch.reorder import METHODS, reorder_graph, reorder_stats
+assert len(METHODS) == 9
+g2, perm = reorder_graph(g, "gorder")
+assert sorted(perm.tolist()) == list(range(g.shape[0]))
+assert reorder_stats(g)["communities"] >= 1
+m3 = GCN(data.num_features, 8, data.num_classes, variant="v6",
+         reorder="gorder", device="cpu")
+m3.fit(data.features, data.adj, data.labels, data.idx_train, train_iters=2)
+rows = m3.profile_ops(n_iters=2, warmup=1, verbose=False).names()
+assert rows == ["l1_xw", "l1_bi", "l2_xw", "l2_af", "l2_bi", "fwd",
+                "bwd"], rows
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)
