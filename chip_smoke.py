@@ -96,6 +96,19 @@ Phases (each failure exits non-zero):
      bf16-rounded x, f32 tolerance), and 5 steps with ``with_relu=False``
      against the unsharded functional GCN under the same flag (the
      tolerances above);
+     [dist flavors], on the same 4 shards: ``overlap=False`` (the
+     monolithic layout), ``overlap="split"`` (the row-split parts in
+     part-degree order), ``exchange="halo_padded"`` and
+     ``exchange="halo_hier"`` on a 2 x 2 mesh with each fan-out: the plan
+     and each new layout's slots; K1 against its float64 plain version on
+     shard 0's new layouts at the widths the step launches (the padded and
+     hierarchical plans change only the halo part: the interior part must
+     equal the ragged plan's); 5 steps (dropout 0) against the unsharded
+     functional GCN (the tolerances above) with K1's launches equal to the
+     count reckoned from the code; for overlap=False and split, 20 steps at
+     dropout 0.5 with K1's launches as reckoned, the median step and a
+     profile of the step; and K1's time in each new use beside
+     ``torch.sparse.mm`` and the bound;
  13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
@@ -126,7 +139,7 @@ Phases (each failure exits non-zero):
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2, and K1 at HGNN's, the frequency split's and the sharded
-parts' shapes, each
+parts' shapes (every flavor's new layouts too), each
 with the launches at its width of the run that uses it, and K1 after each
 reorder method (``use`` names it; ``launches``: the [orders] phase's own
 calls, or the train_gcn fit's for gorder); every bound counts 8 B a stored
@@ -1016,6 +1029,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
                   torch.as_tensor(idx_train, device=dev), train_iters=5,
                   timers=Timers(dev))
     unsharded = [h["loss_train"] for h in res.history]
+    unsharded_lp = res.log_probs
     print(f"  sharded losses {halo_l}\n  unsharded losses {unsharded}",
           flush=True)
     check_close_losses("sharded vs unsharded", halo_l, unsharded, 1e-4)
@@ -1140,35 +1154,235 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     l2, _ = fit(step, second, 10, it0=saved.iteration)
     check_close_losses("dist 10 + 10 vs 20", l1 + l2, losses, 1e-6)
 
-    rows = []
-    for name, t, k, use in DIST_USES:
-        a = parts[name][0]
-        cols, vals, win, win_off, n_out, n_in = k1_arrays(a, t)
-        xk = xs_k[name, t, k]
-        # each call reads the same x: the halo part's output is shorter
-        # than its input, so an output cannot feed the next call
-        ms = time_chain(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
-                                              n_out), xk, n_in, 30)
-        plain_ms = time_chain(lambda _: es._ell_spmm_plain(
-            xk, cols, vals, win, win_off, n_out), xk, n_in, 3)
-        csr = ell_csr(a, t, dev)
-        lib_ms = time_chain(lambda _: torch.sparse.mm(csr, xk), xk, n_in, 30)
-        label = (f"sharded {name} part, shard 0, "
-                 f"{'transpose arrays' if t else 'forward'} k={k} ({use})")
-        print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} "
-              f"ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
-        bound_ms, bound_by = spmm_bound(a.nnz, win_off, n_in, n_out, k)
-        print(f"  K1 at {100 * bound_ms / ms:.1f}% of the bound (by "
-              f"{bound_by})", flush=True)
-        rows.append({
-            "name": f"ell_spmm: {label}", "route": "cuda",
+    rows = [sharded_k1_row(parts[name][0], t, xs_k[name, t, k],
+                           f"sharded {name} part, shard 0, "
+                           f"{'transpose arrays' if t else 'forward'} k={k} "
+                           f"({use})", launches,
+                           f"sharded GCN, {ns} shards, {steps} steps",
+                           errs[name, t, k])
+            for name, t, k, use in DIST_USES]
+    run = dict(mesh=mesh, sg=sg, g=g, start=start, fit=fit,
+               evaluate=evaluate, unsharded=unsharded,
+               unsharded_lp=unsharded_lp, interior=parts["interior"][0],
+               labels=labels, idx_test=idx_test, n=n, nhid=nhid, ncls=ncls)
+    del state, first, second, parts, xs_k
+    return rows + dist_flavor_phases(dev, run)
+
+
+def sharded_k1_row(a, t, xk, label, launches, path, err):
+    """K1's time on one direction of a sharded layout ``a`` at xk's width
+    (CUDA events, the chain behind a spin kernel; each call reads the same
+    x: a part's output can be shorter than its input), its plain version's
+    and ``torch.sparse.mm``'s on the part's CSR, beside the bound; returns
+    the ``kernels`` row (``launches``: ``read_launches()`` of the run on
+    ``path``; ``err``: the check's max abs error)."""
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+
+    cols, vals, win, win_off, n_out, n_in = k1_arrays(a, t)
+    k = xk.shape[1]
+    ms = time_chain(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
+                                          n_out), xk, n_in, 30)
+    plain_ms = time_chain(lambda _: es._ell_spmm_plain(
+        xk, cols, vals, win, win_off, n_out), xk, n_in, 3)
+    csr = ell_csr(a, t, xk.device)
+    lib_ms = time_chain(lambda _: torch.sparse.mm(csr, xk), xk, n_in, 30)
+    print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} "
+          f"ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
+    bound_ms, bound_by = spmm_bound(a.nnz, win_off, n_in, n_out, k)
+    print(f"  K1 at {100 * bound_ms / ms:.1f}% of the bound (by "
+          f"{bound_by})", flush=True)
+    return {"name": f"ell_spmm: {label}", "route": "cuda",
             "source": "gcn_tpu_torch/ops/csrc/ell_spmm.cu",
             "replaces": K1_REPLACES, "launches": launches[1].get(k, 0),
-            "launches_by_k": launches[1],
-            "path": f"sharded GCN, {ns} shards, {steps} steps",
-            "max_abs_err": errs[name, t, k], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms})
+            "launches_by_k": launches[1], "path": path, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+# the flavors of the sharded step beside the default: (label, options, a
+# host x chip mesh, 20 timed steps); each new K1 layout's uses, as
+# DIST_USES': the monolithic layout ("all") unchunked, a forward and a dX a
+# layer; the split parts as the pass-block ones; the padded and
+# hierarchical plans change only the halo part (the interior part's columns
+# are band rows under every plan)
+DIST_FLAVORS = (
+    ("overlap=False", dict(overlap=False), None, True),
+    ("overlap='split'", dict(overlap="split"), None, True),
+    ("halo_padded", dict(exchange="halo_padded"), None, False),
+    ("halo_hier 2x2, ragged fan-out", dict(exchange="halo_hier"), (2, 2),
+     False),
+    ("halo_hier 2x2, all_gather fan-out",
+     dict(exchange="halo_hier", hier_fanout="all_gather"), (2, 2), False))
+MONOLITHIC_USES = (("all", False, 32, "layer 1 forward"),
+                   ("all", True, 32, "layer 1 dX"),
+                   ("all", False, 40, "layer 2 forward"),
+                   ("all", True, 40, "layer 2 dX"))
+SPLIT_USES = tuple(("boundary" if part == "halo" else part, t, k, use)
+                   for part, t, k, use in DIST_USES)
+HALO_USES = tuple(u for u in DIST_USES if u[0] == "halo")
+
+
+def monolithic_launches(n_shards, steps):
+    """K1 launches of a sharded fit on the monolithic layout, reckoned from
+    the code: per shard and layer one forward (no k-chunks: the exchange
+    precedes K1) and one dX; then one eval forward a layer."""
+    return n_shards * (4 * steps + 2)
+
+
+def dist_flavor_phases(dev, run):
+    """[dist flavors]: each of DIST_FLAVORS on synth-arxiv's 4 shards in
+    this process: its plan and slots, K1 on shard 0's new layouts against
+    the float64 plain version, 5 steps at dropout 0 against the unsharded
+    functional GCN (K1's launches as reckoned); for the timed ones 20 steps
+    at dropout 0.5 with K1's launches, the median step and a profile; and
+    the ``kernels`` rows of every new K1 use."""
+    import numpy as np
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.parallel import (build_halo_plan, build_halo_plan_hier,
+                                        create_mesh_hier,
+                                        make_sharded_gcn_train_step)
+
+    sg, ns, n = run["sg"], run["sg"].n_shards, run["n"]
+    widths = (run["nhid"], run["ncls"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = []
+    for label, opts, hier, timed in DIST_FLAVORS:
+        mesh = create_mesh_hier(*hier, dev) if hier else run["mesh"]
+        t0 = time.time()
+        if opts.get("exchange") == "halo_padded":
+            plan = build_halo_plan(sg)
+            desc = (f"padded plan h_max {plan.h_max}, halo rows "
+                    f"{plan.halo_rows}")
+        elif hier:
+            plan = build_halo_plan_hier(sg, *hier,
+                                        fanout=opts.get("hier_fanout",
+                                                        "ragged"))
+            desc = (f"hier plan intra {plan.intra_sizes}, inter "
+                    f"{plan.inter_sizes}, fan {plan.fan_sizes}, DCN "
+                    f"fraction {plan.dcn_fraction:.4f}, fan-out rows "
+                    f"{plan.ici_gather_rows}, halo rows {plan.halo_rows}")
+        else:
+            plan = None
+            desc = "ragged plan (as [dist])"
+        t_plan = time.time() - t0
+        t0 = time.time()
+        step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, exchange_chunk=DIST_CHUNK, k_pad=32,
+            **opts)
+        torch.cuda.synchronize()
+        t_make = time.time() - t0
+        frac = f", exchange fraction {plan.exchange_fraction:.4f}" if plan \
+            else ""
+        print(f"[dist flavors] {label}: {desc}{frac}; host seconds: plan "
+              f"{t_plan:.2f}, make_sharded_gcn_train_step {t_make:.2f}",
+              flush=True)
+        state = run["start"](shard_fn)
+        extra = state[2][0][0]
+        if opts.get("overlap") is False:
+            parts, uses = {"all": extra}, MONOLITHIC_USES
+        elif opts.get("overlap") == "split":
+            parts, uses = {"interior": extra[0], "boundary": extra[1]}, \
+                SPLIT_USES
+        else:
+            parts, uses = {"halo": extra[1]}, HALO_USES
+            same = all(torch.equal(getattr(extra[0][0], f),
+                                   getattr(run["interior"], f))
+                       for f in ("cols", "vals", "win_off", "t_cols",
+                                 "t_vals", "t_win_off"))
+            print(f"  interior part equal to the ragged plan's: {same}",
+                  flush=True)
+            if not same:
+                fail(f"{label}: the interior part depends on the plan")
+        for name, part in parts.items():
+            for t in (False, True):
+                a = part[0]
+                slots = a.t_cols.numel() if t else a.cols.numel()
+                off = a.t_win_off if t else a.win_off
+                print(f"  {name} {'transpose arrays' if t else 'forward'} "
+                      f"({a.n_cols if t else a.n_rows} x "
+                      f"{a.n_rows if t else a.n_cols}): {slots} slots a "
+                      f"shard; stored edges by shard {[p.nnz for p in part]}"
+                      f", pad fraction {1 - a.nnz / slots:.3f} (shard 0); "
+                      f"{off.numel() - 1} windows, up to "
+                      f"{int(off.diff().max())} pass-blocks a window",
+                      flush=True)
+        print(f"  K1 vs plain, shard 0, float64 plain version, f32 "
+              f"tolerance", flush=True)
+        xs_k, errs = {}, {}
+        for name, t, k, _ in uses:
+            cols, vals, win, win_off, n_out, n_in = k1_arrays(parts[name][0],
+                                                              t)
+            xk = xs_k[name, t, k] = torch.randn(n_in, k, device=dev,
+                                                generator=gen)
+            errs[name, t, k] = compare(
+                f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
+                es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+                es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
+                                   win_off, n_out))
+        torch.cuda.synchronize()
+        reckon = (monolithic_launches if opts.get("overlap") is False
+                  else lambda ns_, s: dist_launches(ns_, widths, DIST_CHUNK,
+                                                    s))
+        reset_launches()
+        losses, _ = run["fit"](step, state, 5)
+        lp = run["evaluate"](eval_fn, state)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        print(f"  5 steps, dropout 0: losses {losses}; K1 launches "
+              f"{launches[0]} (expected {reckon(ns, 5)})", flush=True)
+        if launches[0] != reckon(ns, 5):
+            fail(f"{label}: {launches[0]} K1 launches in 5 steps, expected "
+                 f"{reckon(ns, 5)}")
+        check_close_losses(f"{label} vs unsharded", losses, run["unsharded"],
+                           1e-4)
+        compare(f"{label} vs unsharded eval log-probs", lp,
+                run["unsharded_lp"], rtol=1e-5, atol=1e-4)
+        path = f"sharded GCN {label}, {ns} shards, 5 steps, dropout 0"
+        if timed:
+            steps = 20
+            step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+                mesh, sg, dropout=0.5, exchange_chunk=DIST_CHUNK, k_pad=32,
+                **opts)
+            state = run["start"](shard_fn)
+            reset_launches()
+            losses, step_ms = run["fit"](step, state, steps, events=True)
+            lp = run["evaluate"](eval_fn, state)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            idx_test = run["idx_test"]
+            acc = (lp[idx_test].argmax(1).cpu().numpy()
+                   == run["labels"][idx_test.cpu().numpy()]).mean()
+            print(f"  {steps} steps, dropout 0.5, seed {SEED}: losses first "
+                  f"{losses[0]:.6f} last {losses[-1]:.6f}; median step "
+                  f"{statistics.median(step_ms[-10:]):.3f} ms (CUDA events, "
+                  f"last 10 steps); test accuracy {acc:.4f}; K1 launches "
+                  f"{launches[0]} by width {launches[1]} (expected "
+                  f"{reckon(ns, steps)} from the code)", flush=True)
+            if launches[0] != reckon(ns, steps):
+                fail(f"{label}: {launches[0]} K1 launches, expected "
+                     f"{reckon(ns, steps)}")
+            if not losses[-1] < losses[0]:
+                fail(f"{label}: loss did not fall")
+            if (tuple(lp.shape) != (n, run["ncls"])
+                    or not torch.isfinite(lp).all()):
+                fail(f"{label}: output shape {tuple(lp.shape)} or values "
+                     f"not finite")
+            it = iter(range(steps, 10 ** 9))
+            profile_device(f"[dist flavors profile] {label}", lambda: step(
+                state[0], state[1], (SEED + 1, next(it)), *state[2]), 5)
+            path = f"sharded GCN {label}, {ns} shards, {steps} steps"
+        for name, t, k, use in uses:
+            rows.append(sharded_k1_row(
+                parts[name][0], t, xs_k[name, t, k],
+                f"sharded {label} {name} part, shard 0, "
+                f"{'transpose arrays' if t else 'forward'} k={k} ({use})",
+                launches, path, errs[name, t, k]))
+        del state, parts, extra, xs_k
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -1,13 +1,18 @@
 """Row-band sharded GCN training (the port of ``gcn_tpu.parallel``): the
-row partition, the ragged halo plan and its exchange over
-``torch.distributed``, the pass-block sharded ELL layout on K1, and the
+row partition; the ragged, padded and hierarchical halo plans and their
+exchanges over ``torch.distributed``; the pass-block, monolithic and
+row-split sharded ELL layouts on K1 with ``unpermute_rows``; and the
 sharded train step."""
 
-from gcn_tpu_torch.parallel.halo import (RaggedHaloPlan,
+from gcn_tpu_torch.parallel.halo import (HaloPlan, HierHaloPlan,
+                                         RaggedHaloPlan, build_halo_plan,
+                                         build_halo_plan_hier,
                                          build_halo_plan_ragged,
+                                         build_sharded_ell,
                                          build_sharded_ell_blocks,
-                                         make_halo_exchange)
-from gcn_tpu_torch.parallel.mesh import (Mesh, create_mesh,
+                                         make_halo_exchange, send_indices,
+                                         unpermute_rows)
+from gcn_tpu_torch.parallel.mesh import (Mesh, create_mesh, create_mesh_hier,
                                          initialize_multihost)
 from gcn_tpu_torch.parallel.partition import (ShardedGraph,
                                               band_degree_sort_order,
@@ -16,17 +21,25 @@ from gcn_tpu_torch.parallel.partition import (ShardedGraph,
 from gcn_tpu_torch.parallel.train_step import make_sharded_gcn_train_step
 
 __all__ = [
+    "HaloPlan",
+    "HierHaloPlan",
     "Mesh",
     "RaggedHaloPlan",
     "ShardedGraph",
     "band_degree_sort_order",
+    "build_halo_plan",
+    "build_halo_plan_hier",
     "build_halo_plan_ragged",
+    "build_sharded_ell",
     "build_sharded_ell_blocks",
     "create_mesh",
+    "create_mesh_hier",
     "initialize_multihost",
     "make_halo_exchange",
     "make_sharded_gcn_train_step",
     "pad_rows",
     "rows_per_shard_for",
+    "send_indices",
     "shard_graph_by_rows",
+    "unpermute_rows",
 ]

@@ -6,7 +6,9 @@ over ``torch.distributed`` and lets each process own one or more row bands
 (shards): rank r owns the contiguous shards ``[r * spr, (r + 1) * spr)``
 with ``spr = n_shards // world_size``. Within a process, moving rows
 between two of its shards is a copy on its device; between processes it is
-point-to-point over NCCL (GPUs) or gloo (CPU).
+point-to-point over NCCL (GPUs) or gloo (CPU). A hierarchical mesh
+(``create_mesh_hier``) also factors the shards as hosts x chips, shard =
+host * n_chips + chip, for the hierarchical halo exchange.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ from gcn_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``n_shards`` row bands over ``world_size`` processes; this process
-    is ``rank`` and keeps its shards' tensors on ``device``."""
+    is ``rank`` and keeps its shards' tensors on ``device``. ``n_hosts`` x
+    ``n_chips`` factor the shards on a hierarchical mesh (None on a flat
+    one)."""
 
     n_shards: int
     device: torch.device
     rank: int = 0
     world_size: int = 1
+    n_hosts: Optional[int] = None
+    n_chips: Optional[int] = None
 
     @property
     def shards_per_rank(self) -> int:
@@ -67,6 +73,15 @@ def create_mesh(n_shards: int, device=None) -> Mesh:
                          f"{world} processes")
     return Mesh(n_shards=n_shards, device=device, rank=rank,
                 world_size=world)
+
+
+def create_mesh_hier(n_hosts: int, n_chips: int, device=None) -> Mesh:
+    """A mesh of ``n_hosts * n_chips`` bands for the hierarchical halo
+    exchange: shard = host * n_chips + chip, so a host's chips are
+    consecutive shards (and, the ownership being contiguous, consecutive
+    ranks); the card by default, ``device="cpu"`` for the CPU."""
+    mesh = create_mesh(n_hosts * n_chips, device)
+    return dataclasses.replace(mesh, n_hosts=n_hosts, n_chips=n_chips)
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,

@@ -5,24 +5,31 @@ the graph row-partitioned into shards (``parallel/partition.py``), weights
 replicated, and the feature, label and mask rows split by band. Each
 process runs the step for the shards it owns (``parallel/mesh.py``):
 
-  * per layer, the fused boundary-rows-first aggregation over the
-    pass-block partition (``halo.dist_spmm_halo_ell_overlap_blocks_xw``):
-    the send rows' ``rows @ W`` leaves first, the interior K1 runs while it
-    travels, the halo K1 after the wait, k-chunked at ``exchange_chunk``;
+  * per layer, the band aggregation over the halo exchange: by default the
+    fused boundary-rows-first form over the pass-block partition
+    (``halo.dist_spmm_halo_ell_overlap_blocks_xw``): the send rows'
+    ``rows @ W`` leaves first, the interior K1 runs while it travels, the
+    halo K1 after the wait, k-chunked at ``exchange_chunk``;
   * the loss is psum(masked NLL sum) / psum(mask count), as gcn_tpu's
     ``loss_shmap``: the count is all-reduced first (no gradient), each
     process back-propagates its bands' share (the exchanges carry the
     cross-band gradients), then every parameter gradient is all-reduced
     and each process takes the same Adam step.
 
-Knobs ported: ``exchange`` "halo" (the ragged plan) or "all_gather" (the
-baseline); ``kernel`` "ell" (K1, needs the halo) or "segsum" (``index_add``);
-``overlap`` True / "blocks"; ``exchange_dtype`` None, "bf16" or "fp8" (the
-halo wire); ``exchange_chunk`` ("auto" = ``k_pad``, None = no chunking);
-``k_pad``. Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md,
-"Still to port"): ``exchange="halo_padded"``, ``exchange="halo_hier"``,
-``overlap="split"`` and ``overlap=False``, ``model_axis``,
-``exchange_dtype="auto"``.
+Knobs, as gcn_tpu's: ``exchange`` "halo" (the ragged plan), "halo_padded"
+(the padded all-to-all plan), "halo_hier" (the host x chip plan, whose
+factorization the mesh gives: ``create_mesh_hier``) or "all_gather" (the
+baseline); ``kernel`` "ell" (K1, needs a halo exchange) or "segsum"
+(``index_add``); ``overlap`` True / "blocks" (the pass-block partition,
+fused), "split" (the row-split parts in part-degree order, fused) or False
+(the monolithic layout: ``x @ w``, the exchange, then K1 on concat(halo,
+band)); ``exchange_dtype`` None, "bf16" or "fp8" (the halo wire);
+``exchange_chunk`` ("auto" = ``k_pad``, None = no chunking); ``k_pad``. The
+port adds ``hier_fanout``, the hierarchical plan's fan-out ("ragged", the
+one gcn_tpu's step builds, or "all_gather"). Not ported yet, each raising
+``NotImplementedError`` (ROADMAP.md, "Still to port"): ``model_axis``,
+``exchange_dtype="auto"`` and its ``widths``, and an ``axis`` other than
+the default.
 
 Dropout draws each band's mask from a ``torch.Generator`` seeded from
 (seed, iteration, band) (``band_seed``), so a resumed run equals an
@@ -92,6 +99,9 @@ def make_sharded_gcn_train_step(
     exchange_dtype: str = None,
     exchange_chunk="auto",
     k_pad: int = 32,
+    axis: str = "data",
+    widths: tuple = None,
+    hier_fanout: str = "ragged",
 ) -> Tuple[Callable, Callable, Callable]:
     """Returns ``(train_step, eval_fn, shard_fn)`` for the shards that
     ``mesh`` gives this process.
@@ -114,33 +124,29 @@ def make_sharded_gcn_train_step(
     """
     if exchange not in _EXCHANGES:
         raise ValueError(f"exchange must be one of {_EXCHANGES}")
-    if exchange == "halo_padded":
-        raise _not_ported("exchange='halo_padded'",
-                          "the padded halo plan")
-    if exchange == "halo_hier":
-        raise _not_ported("exchange='halo_hier'",
-                          "the hierarchical halo plan")
-    if exchange_dtype == "auto":
-        raise _not_ported("exchange_dtype='auto'",
+    if exchange_dtype == "auto" or widths is not None:
+        raise _not_ported("exchange_dtype='auto' (and its widths)",
                           "projection.py on H100 and NVLink numbers")
     if exchange_dtype not in _WIRES:
         raise ValueError(f"exchange_dtype must be one of {tuple(_WIRES)}")
-    if exchange_dtype is not None and exchange != "halo":
-        raise ValueError("exchange_dtype applies to the halo exchange only; "
+    if exchange_dtype is not None and exchange == "all_gather":
+        raise ValueError("exchange_dtype applies to the halo exchanges only; "
                          "the all_gather baseline ships the compute dtype")
     if overlap not in (True, False, "blocks", "split"):
         raise ValueError("overlap must be True, False, 'blocks' or 'split'")
     if model_axis is not None:
         raise _not_ported("model_axis", "the 2-D model axis")
+    if axis != "data":
+        raise _not_ported(f"axis={axis!r}", "the 2-D model axis")
     if kernel is None:
         kernel = "segsum" if exchange == "all_gather" else "ell"
     if kernel not in ("segsum", "ell"):
         raise ValueError("kernel must be 'ell' or 'segsum'")
-    if kernel == "ell" and exchange != "halo":
-        raise ValueError("kernel='ell' requires the halo exchange")
-    if kernel == "ell" and overlap not in (True, "blocks"):
-        raise _not_ported(f"overlap={overlap!r}",
-                          "overlap='split' and the monolithic layout")
+    if kernel == "ell" and exchange == "all_gather":
+        raise ValueError("kernel='ell' requires a halo exchange")
+    if exchange == "halo_hier" and mesh.n_hosts is None:
+        raise ValueError("exchange='halo_hier' needs a host x chip mesh "
+                         "(create_mesh_hier)")
     if exchange_chunk == "auto":
         exchange_chunk = k_pad
 
@@ -153,22 +159,26 @@ def make_sharded_gcn_train_step(
     def index(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
-    fused = None
-    if exchange == "halo":
-        plan = halo.build_halo_plan_ragged(sg)
-        send_idx = [index(plan.send_idx[s]) for s in owned]
-        ex_fn = halo.make_halo_exchange(plan, _WIRES[exchange_dtype])
-        if kernel == "ell":
-            ell_int, ell_halo = halo.build_sharded_ell_blocks(
-                sg, plan, k_pad=k_pad, shards=owned, device=dev)
-            extra = (ell_int, ell_halo)
+    fused = band_spmm = None
+    if exchange == "all_gather":
+        send_idx = None
+        extra = [(index(sg.rows_local[s]), index(sg.cols[s]),
+                  torch.as_tensor(sg.vals[s], device=dev)) for s in owned]
 
-            def fused(adj, xs, w):
-                (e_int, e_halo), idx = adj
-                return halo.dist_spmm_halo_ell_overlap_blocks_xw(
-                    e_int, e_halo, idx, xs, w, mesh, ex_fn,
-                    chunk=exchange_chunk)
+        def band_spmm(adj, hs):
+            return spmm_dist.dist_spmm_gathered(adj[0], hs, rps, mesh)
+    else:
+        if exchange == "halo_hier":
+            plan = halo.build_halo_plan_hier(sg, mesh.n_hosts, mesh.n_chips,
+                                             fanout=hier_fanout)
+        elif exchange == "halo_padded":
+            plan = halo.build_halo_plan(sg)
         else:
+            plan = halo.build_halo_plan_ragged(sg)
+        send_idx = halo.send_indices(plan, owned, dev)
+        ex_fn = halo.make_halo_exchange(plan, _WIRES[exchange_dtype])
+        layout = dict(k_pad=k_pad, shards=owned, device=dev)
+        if kernel == "segsum":
             extra = [(index(sg.rows_local[s]), index(plan.col_remap[s]),
                       torch.as_tensor(sg.vals[s], device=dev))
                      for s in owned]
@@ -176,13 +186,35 @@ def make_sharded_gcn_train_step(
             def band_spmm(adj, hs):
                 coo, idx = adj
                 return halo.dist_spmm_halo(coo, idx, hs, rps, mesh, ex_fn)
-    else:
-        send_idx = None
-        extra = [(index(sg.rows_local[s]), index(sg.cols[s]),
-                  torch.as_tensor(sg.vals[s], device=dev)) for s in owned]
+        elif overlap in (True, "blocks"):
+            extra = halo.build_sharded_ell_blocks(sg, plan, **layout)
 
-        def band_spmm(adj, hs):
-            return spmm_dist.dist_spmm_gathered(adj[0], hs, rps, mesh)
+            def fused(adj, xs, w):
+                (e_int, e_halo), idx = adj
+                return halo.dist_spmm_halo_ell_overlap_blocks_xw(
+                    e_int, e_halo, idx, xs, w, mesh, ex_fn,
+                    chunk=exchange_chunk)
+        elif overlap == "split":
+            # each part in its own part-degree row order, restored to band
+            # order by unpermute_rows
+            e_int, i_take, i_back = halo.build_sharded_ell(
+                sg, plan, part="interior", part_order=True, **layout)
+            e_bnd, b_take, b_back = halo.build_sharded_ell(
+                sg, plan, part="boundary", part_order=True, **layout)
+            extra = (e_int, e_bnd, list(zip(i_take, i_back)),
+                     list(zip(b_take, b_back)))
+
+            def fused(adj, xs, w):
+                (e_int, e_bnd, i_un, b_un), idx = adj
+                return halo.dist_spmm_halo_ell_overlap_xw(
+                    e_int, e_bnd, idx, xs, w, mesh, ex_fn,
+                    chunk=exchange_chunk, int_unperm=i_un, bnd_unperm=b_un)
+        else:
+            extra = halo.build_sharded_ell(sg, plan, **layout)
+
+            def band_spmm(adj, hs):
+                ell, idx = adj
+                return halo.dist_spmm_halo_ell(ell, idx, hs, mesh, ex_fn)
 
     def layer(adj, hs, w):
         if fused is not None:

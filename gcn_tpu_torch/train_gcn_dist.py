@@ -3,8 +3,10 @@
 
 Full-batch 2-layer GCN with the graph cut into ``--shards`` row bands,
 trained through ``parallel.make_sharded_gcn_train_step`` (the ragged halo
-exchange, the fused boundary-rows-first overlap on K1, an optional bf16 or
-fp8 wire). One process owns every shard:
+exchange by default, or the padded or hierarchical one; the fused
+boundary-rows-first overlap on K1, or the monolithic layout with
+``--no-overlap``; an optional bf16 or fp8 wire). One process owns every
+shard:
 
     python -m gcn_tpu_torch.train_gcn_dist --shards 4 -g synth-arxiv -k 32
 
@@ -14,8 +16,8 @@ the cards, gloo with ``--device cpu``):
     torchrun --nproc-per-node 2 -m gcn_tpu_torch.train_gcn_dist \\
         --shards 4 -g synth-arxiv -k 32
 
-Same flags as the gcn_tpu driver, less ``--hier`` and ``--halo-wire
-auto``; ``--save-state`` / ``--resume-state`` write and read the training
+Same flags as the gcn_tpu driver, less ``--halo-wire auto``;
+``--save-state`` / ``--resume-state`` write and read the training
 state in gcn_tpu's checkpoint layout (``utils/checkpoint.py``). The dropout
 stream is a function of (seed, iteration, band), so a resumed run equals an
 uninterrupted one. Runs on the card unless ``--device cpu`` is given; rank
@@ -41,6 +43,10 @@ def main(argv=None):
     ap.add_argument("--exchange", default="halo",
                     choices=["halo", "halo_padded", "halo_hier",
                              "all_gather"])
+    ap.add_argument("--hier", type=int, nargs=2, metavar=("HOSTS", "CHIPS"),
+                    default=None,
+                    help="host x chip factorization of the shards for "
+                         "--exchange halo_hier (default: 2 x shards/2)")
     ap.add_argument("--halo-bf16", action="store_true",
                     help="exchange_dtype='bf16': bf16 payload on the wire "
                          "(forward and backward), cast back on arrival")
@@ -50,8 +56,8 @@ def main(argv=None):
                          "bytes, fp8 (float8_e4m3fn, clipped) quarters "
                          "them. Overrides --halo-bf16.")
     ap.add_argument("--no-overlap", action="store_true",
-                    help="the monolithic layout without overlap (not "
-                         "ported yet)")
+                    help="the monolithic layout: the exchange, then K1 on "
+                         "concat(halo, band), no overlap (ablation)")
     ap.add_argument("--reorder", default="rabbit", choices=METHODS,
                     help="vertex reorder (rabbit shrinks the halo; the "
                          "in-band degree sort is composed after it)")
@@ -83,7 +89,10 @@ def main(argv=None):
     from gcn_tpu_torch.graph.normalize import gcn_normalize
     from gcn_tpu_torch.models.gcn_core import init_gcn_params
     from gcn_tpu_torch.parallel import (band_degree_sort_order,
+                                        build_halo_plan,
+                                        build_halo_plan_hier,
                                         build_halo_plan_ragged, create_mesh,
+                                        create_mesh_hier,
                                         initialize_multihost,
                                         make_sharded_gcn_train_step,
                                         pad_rows, rows_per_shard_for,
@@ -99,6 +108,11 @@ def main(argv=None):
     else:
         mesh = create_mesh(args.shards or 1, args.device)
     d = mesh.n_shards
+    if args.exchange == "halo_hier":
+        nh, nc = args.hier or (2, d // 2)
+        if nh * nc != d:
+            sys.exit(f"--hier {nh} {nc} does not factor shards={d}")
+        mesh = create_mesh_hier(nh, nc, mesh.device)
 
     def log(*a):
         if mesh.rank == 0:
@@ -199,9 +213,14 @@ def main(argv=None):
     acc_tr, acc = (float(counts[0] / counts[1]), float(counts[2] / counts[3]))
     log(f"Train accuracy= {acc_tr:.4f}")
     log(f"Test set results: accuracy= {acc:.4f}")
-    if args.exchange == "halo":
-        log(f"exchange fraction: "
-            f"{build_halo_plan_ragged(sg).exchange_fraction:.3f}")
+    if args.exchange == "halo_hier":
+        plan = build_halo_plan_hier(sg, mesh.n_hosts, mesh.n_chips)
+        log(f"exchange fraction: {plan.exchange_fraction:.3f} (across hosts "
+            f"{plan.dcn_fraction:.3f}; {mesh.n_hosts} x {mesh.n_chips})")
+    elif args.exchange != "all_gather":
+        plan = (build_halo_plan(sg) if args.exchange == "halo_padded"
+                else build_halo_plan_ragged(sg))
+        log(f"exchange fraction: {plan.exchange_fraction:.3f}")
     if mesh.distributed:
         dist.destroy_process_group()
     return acc

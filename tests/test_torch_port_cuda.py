@@ -702,3 +702,116 @@ def test_kernel_on_sharded_parts_with_bf16_on_card(cuda, option, part):
             want = es._ell_spmm_plain(x, a.cols, a.vals, a.win, a.win_off,
                                       a.n_rows, True)
             torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def _flavor_layouts(device, part, plan="ragged"):
+    """The community graph's monolithic layout (``part="all"``) or one
+    row-split part in part-degree order, every shard's, on ``device``."""
+    from gcn_tpu_torch.parallel import (build_halo_plan,
+                                        build_halo_plan_ragged,
+                                        build_sharded_ell)
+
+    _, sg, _, _, _ = _sharded_problem("cpu")
+    build = build_halo_plan if plan == "padded" else build_halo_plan_ragged
+    out = build_sharded_ell(sg, build(sg), part=part, k_pad=32,
+                            part_order=part != "all", device=device)
+    return out if part == "all" else out[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 40, 8])
+@pytest.mark.parametrize("part,plan", [("all", "ragged"), ("all", "padded"),
+                                       ("interior", "ragged"),
+                                       ("boundary", "ragged"),
+                                       ("boundary", "padded")])
+@pytest.mark.parametrize("t", [False, True])
+def test_kernel_on_monolithic_and_split_parts_on_card(cuda, k, part, plan,
+                                                       t):
+    """K1 on every shard's monolithic layout and row-split parts, forward
+    and through the transpose arrays, at the sharded step's widths, against
+    the float64 plain version."""
+    for a in _flavor_layouts(cuda, part, plan):
+        cols, vals, win, win_off, n_out, n_in = (
+            (a.t_cols, a.t_vals, a.t_win, a.t_win_off, a.n_cols, a.n_rows)
+            if t else (a.cols, a.vals, a.win, a.win_off, a.n_rows,
+                       a.n_cols))
+        x = torch.randn(n_in, k, device=cuda)
+        before = es.spmm_ell_launches
+        got = es.ell_spmm(x, cols, vals, win, win_off, n_out)
+        torch.cuda.synchronize()
+        assert es.spmm_ell_launches == before + 1
+        _close(got, es._ell_spmm_plain(x.double(), cols, vals.double(), win,
+                                       win_off, n_out).float())
+
+
+@pytest.mark.cuda
+def test_unpermute_rows_on_card(cuda):
+    """unpermute_rows on the card: the forward and the gather-only gradient
+    equal the CPU's, for the split part's own take_idx / back_idx."""
+    from gcn_tpu_torch.parallel import (build_halo_plan_ragged,
+                                        build_sharded_ell, unpermute_rows)
+
+    _, sg, _, _, _ = _sharded_problem("cpu")
+    _, takes, backs = build_sharded_ell(sg, build_halo_plan_ragged(sg),
+                                        part="boundary", part_order=True,
+                                        shards=[0], device=cuda)
+    y = torch.randn(sg.rows_per_shard, 40)
+    ct = torch.randn(sg.rows_per_shard, 40)
+    grads = []
+    for device in ("cpu", cuda):
+        yd = y.detach().to(device).requires_grad_(True)
+        out = unpermute_rows(yd, takes[0].to(device), backs[0].to(device))
+        (out * ct.to(device)).sum().backward()
+        grads.append((out.detach().cpu(), yd.grad.cpu()))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,launches", [
+    (dict(overlap=False), 4 * (2 * 4 + 2)),
+    (dict(overlap="split"), 4 * (2 * 10 + 5)),
+    (dict(exchange="halo_padded"), 4 * (2 * 10 + 5)),
+    (dict(exchange="halo_hier"), 4 * (2 * 10 + 5)),
+    (dict(exchange="halo_hier", hier_fanout="all_gather", overlap=False),
+     4 * (2 * 4 + 2))])
+def test_sharded_flavors_on_card_match_cpu(cuda, flavor, launches):
+    """Two sharded steps of each flavor at dropout 0, four shards in one
+    process (2 x 2 for the hierarchical exchange), card against CPU from
+    the same parameters: losses at rtol 1e-4, eval log-probs at atol 1e-4 +
+    rtol 1e-5; the card's K1 launches as reckoned (monolithic: a forward
+    and a dX a layer, 2 in eval; the fused forms: the interior and one halo
+    launch a 32-column chunk, as many for dX, 5 in eval), the CPU's none."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models.gcn_core import init_gcn_params
+    from gcn_tpu_torch.parallel import (create_mesh, create_mesh_hier,
+                                        make_sharded_gcn_train_step)
+    from gcn_tpu_torch.train.optim import adam_l2
+    from gcn_tpu_torch.utils.checkpoint import named_leaves
+
+    g, sg, x, labels, _ = _sharded_problem("cpu")
+    p0 = params_to_numpy(init_gcn_params(torch.Generator().manual_seed(3),
+                                         24, 40, 5, device="cpu"))
+    mask = np.zeros(g.shape[0], np.float32)
+    mask[::3] = 1.0
+    runs = {}
+    for device in ("cpu", cuda):
+        mesh = (create_mesh_hier(2, 2, device)
+                if flavor.get("exchange") == "halo_hier"
+                else create_mesh(4, device))
+        step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, **flavor)
+        adj, xs, ys, ms = shard_fn(x, labels, mask)
+        params = params_from_numpy(p0, device)
+        opt = adam_l2([t.requires_grad_(True)
+                       for _, t in named_leaves(params)])
+        before = es.spmm_ell_launches
+        losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
+                  for i in range(2)]
+        lp = eval_fn(params, adj, xs).cpu()
+        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before)
+    (l_cpu, lp_cpu, k1_cpu), (l_card, lp_card, k1_card) = runs.values()
+    assert k1_cpu == 0
+    assert k1_card == launches
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)

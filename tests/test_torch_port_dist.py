@@ -19,74 +19,42 @@ gcn_tpu's, in one process and in two.
 """
 
 import dataclasses
-import json
-import os
-import re
-import socket
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from gcn_tpu.data.synthetic import class_features, powerlaw_sbm, sbm
-from gcn_tpu.graph.csr import coo_to_csr as jx_coo
-from gcn_tpu.graph.normalize import gcn_normalize as jx_normalize
-from gcn_tpu.models.gcn_core import init_gcn_params as jx_init
-from gcn_tpu.parallel import create_mesh as jx_mesh
-from gcn_tpu.parallel import make_sharded_gcn_train_step as jx_step
 from gcn_tpu.parallel import partition as jx_part
 from gcn_tpu.parallel.halo import build_halo_plan_ragged as jx_plan
 from gcn_tpu.parallel.halo import build_sharded_ell_blocks as jx_blocks
-from gcn_tpu.train.optim import adam_l2 as jx_adam
 
 from gcn_tpu_torch.convert import params_from_numpy
-from gcn_tpu_torch.graph.csr import CSRGraph
 from gcn_tpu_torch.models.gcn_core import gcn_forward
 from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.parallel import (band_degree_sort_order,
                                     build_halo_plan_ragged,
+                                    build_sharded_ell,
                                     build_sharded_ell_blocks, create_mesh,
+                                    create_mesh_hier,
                                     make_sharded_gcn_train_step, pad_rows,
                                     rows_per_shard_for, shard_graph_by_rows)
 from gcn_tpu_torch.tile.ell import _win_offsets, ell_adjacency
 from gcn_tpu_torch.train.metrics import masked_nll
 from gcn_tpu_torch.train.optim import adam_l2
 from gcn_tpu_torch.utils.checkpoint import named_leaves
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NS = 4
-STEPS = 3
-
-
-def _port(g):
-    return CSRGraph(g.indptr, g.indices, g.data, g.shape)
-
-
-def _sbm_graph():
-    adj, labels = sbm(n=256, n_classes=4, avg_degree=8.0, seed=3)
-    return jx_normalize(adj), labels
-
-
-def _powerlaw_graph():
-    adj, _ = powerlaw_sbm(n=1024, n_classes=8, avg_degree=12, seed=3)
-    g = jx_normalize(adj)
-    sg0 = jx_part.shard_graph_by_rows(g, NS)
-    return g.permute(jx_part.band_degree_sort_order(g, sg0.rows_per_shard))
-
-
-def _empty_band_graph():
-    """All edges among the first 64 of 256 rows: bands 1-3 are empty."""
-    rng = np.random.default_rng(1234)
-    src, dst = rng.integers(0, 64, 400), rng.integers(0, 64, 400)
-    return jx_normalize(jx_coo(src, dst, np.ones(400, np.float32),
-                               (256, 256)).symmetrize())
-
-
-GRAPHS = {"sbm": lambda: _sbm_graph()[0], "powerlaw": _powerlaw_graph,
-          "empty_band": _empty_band_graph}
+from torch_port_dist_graphs import GRAPHS, NS, REPO, STEPS
+from torch_port_dist_graphs import gloo_run as _gloo_run
+from torch_port_dist_graphs import jax_run as _jax_run
+from torch_port_dist_graphs import one_process_of_gloo_problem
+from torch_port_dist_graphs import port_graph as _port
+from torch_port_dist_graphs import port_run as _port_run
+from torch_port_dist_graphs import powerlaw_graph as _powerlaw_graph
+from torch_port_dist_graphs import problem as _problem
+from torch_port_dist_graphs import sbm_graph as _sbm_graph
+from torch_port_dist_graphs import subprocess_env as _env
+from torch_port_dist_graphs import free_port as _free_port
 
 
 @pytest.mark.parametrize("name", list(GRAPHS))
@@ -292,47 +260,6 @@ def test_overlap_blocks_spmm_matches_segment_sum():
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
 
 
-def _problem(nhid=40, with_bias=True):
-    jg, labels = _sbm_graph()
-    x = class_features(labels, feat_dim=16, seed=3)
-    p0 = jax.tree_util.tree_map(np.asarray,
-                                jx_init(jax.random.PRNGKey(0), 16, nhid, 4,
-                                        with_bias=with_bias))
-    return jg, x, labels, np.ones(jg.shape[0], np.float32), p0
-
-
-def _jax_run(jg, x, labels, mask, p0, steps=STEPS, **kw):
-    jsg = jx_part.shard_graph_by_rows(jg, NS)
-    tx = jx_adam(0.01, 5e-4)
-    step, eval_fn, shard_fn = jx_step(jx_mesh(NS), jsg, tx, dropout=0.0,
-                                      **kw)
-    adj, xs, ys, ms = shard_fn(jsg, jx_part.pad_rows(x, jsg),
-                               jx_part.pad_rows(labels, jsg),
-                               jx_part.pad_rows(mask, jsg))
-    params, opt_state, losses = p0, tx.init(p0), []
-    for _ in range(steps):
-        params, opt_state, loss = step(params, opt_state,
-                                       jax.random.PRNGKey(7), adj, xs, ys,
-                                       ms)
-        losses.append(float(loss))
-    return losses, np.asarray(eval_fn(params, adj, xs))
-
-
-def _port_run(g, x, labels, mask, p0, steps=STEPS, dropout=0.0, mesh=None,
-              **kw):
-    sg = shard_graph_by_rows(g, NS)
-    mesh = mesh or create_mesh(NS, "cpu")
-    step, eval_fn, shard_fn = make_sharded_gcn_train_step(
-        mesh, sg, dropout=dropout, **kw)
-    adj, xs, ys, ms = shard_fn(x, labels, mask)
-    params = params_from_numpy(p0, "cpu")
-    leaves = [t.requires_grad_(True) for _, t in named_leaves(params)]
-    opt = adam_l2(leaves, 0.01, 5e-4)
-    losses = [float(step(params, opt, (8, i), adj, xs, ys, ms))
-              for i in range(steps)]
-    return losses, eval_fn(params, adj, xs).numpy()
-
-
 CONFIGS = {
     "halo_chunked": dict(exchange_chunk=16),
     "halo_unchunked": dict(exchange_chunk=None),
@@ -462,12 +389,10 @@ def test_sharded_matches_unsharded_port():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(exchange="halo_padded"), "padded halo plan"),
-    (dict(exchange="halo_hier"), "hierarchical halo plan"),
-    (dict(overlap="split"), "overlap='split'"),
-    (dict(overlap=False), "overlap='split'"),
     (dict(model_axis="model"), "2-D model axis"),
     (dict(exchange_dtype="auto"), "projection.py"),
+    (dict(axis="rows"), "2-D model axis"),
+    (dict(widths=(16, 40, 4)), "projection.py"),
 ])
 def test_unported_options_raise(kw, match):
     sg = shard_graph_by_rows(_port(_sbm_graph()[0]), NS)
@@ -499,93 +424,18 @@ def test_dist_entry_points_default_to_the_card():
     plan = build_halo_plan_ragged(sg)
     if torch.cuda.is_available():
         assert create_mesh(NS).device.type == "cuda"
+        assert create_mesh_hier(2, 2).device.type == "cuda"
         assert build_sharded_ell_blocks(sg, plan)[0][0].cols.is_cuda
+        assert build_sharded_ell(sg, plan)[0].cols.is_cuda
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_mesh(NS)
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_mesh_hier(2, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             build_sharded_ell_blocks(sg, plan)
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                "MASTER_PORT"):
-        env.pop(key, None)
-    return env
-
-
-WORKER = r"""
-import json, sys
-import numpy as np
-from gcn_tpu_torch.data.synthetic import class_features, sbm
-from gcn_tpu_torch.graph.normalize import gcn_normalize
-from gcn_tpu_torch.parallel import (initialize_multihost,
-                                    make_sharded_gcn_train_step,
-                                    shard_graph_by_rows)
-from gcn_tpu_torch.models.gcn_core import init_gcn_params
-from gcn_tpu_torch.train.optim import adam_l2
-from gcn_tpu_torch.utils.checkpoint import named_leaves
-import torch
-
-coord, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-kw = json.loads(sys.argv[4])
-p0 = kw.pop("params", None)
-mesh = initialize_multihost(coord, world, rank, n_shards=4, device="cpu")
-adj, labels = sbm(n=256, n_classes=4, avg_degree=8.0, seed=3)
-g = gcn_normalize(adj)
-x = class_features(labels, feat_dim=16, seed=3)
-step, eval_fn, shard_fn = make_sharded_gcn_train_step(
-    mesh, shard_graph_by_rows(g, 4), exchange_chunk=16, **kw)
-a, xs, ys, ms = shard_fn(x, labels, np.ones(256, np.float32))
-if p0 is None:
-    params = init_gcn_params(torch.Generator().manual_seed(0), 16, 40, 4,
-                             device="cpu")
-else:
-    params = {l: {k: torch.tensor(v, dtype=torch.float32)
-                  for k, v in layer.items()} for l, layer in p0.items()}
-leaves = [t.requires_grad_(True) for _, t in named_leaves(params)]
-opt = adam_l2(leaves, 0.01, 5e-4)
-losses = [float(step(params, opt, (8, i), a, xs, ys, ms)) for i in range(4)]
-print("LOSSES", json.dumps(losses))
-print("EVAL", json.dumps(eval_fn(params, a, xs).tolist()))
-"""
-
-
-def _gloo_run(**kw):
-    """Two gloo worker processes of two shards each with the step options
-    ``kw`` (``params``: numpy parameters to start from); returns each
-    rank's losses and the concatenated eval log-probs."""
-    coord = f"127.0.0.1:{_free_port()}"
-    arg = json.dumps(kw, default=lambda a: np.asarray(a).tolist())
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, coord, "2", str(rank), arg], cwd=REPO,
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for rank in (0, 1)]
-    outs = []
-    for p in procs:
-        try:
-            out, err = p.communicate(timeout=240)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            pytest.fail("a gloo worker timed out")
-        assert p.returncode == 0, err[-3000:]
-        outs.append(out)
-    losses = [json.loads(re.search(r"LOSSES (\[.*\])", o).group(1))
-              for o in outs]
-    lp = np.concatenate([json.loads(re.search(r"EVAL (\[.*\])", o).group(1))
-                         for o in outs])
-    return losses, lp
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_sharded_ell(sg, plan)
 
 
 def test_two_gloo_processes_match_one_process():
@@ -593,20 +443,7 @@ def test_two_gloo_processes_match_one_process():
     all-reduced gradients) against one process of four, dropout 0.5."""
     losses, lp = _gloo_run(dropout=0.5)
     assert losses[0] == losses[1]
-
-    from gcn_tpu_torch.data.synthetic import class_features as t_features
-    from gcn_tpu_torch.data.synthetic import sbm as t_sbm
-    from gcn_tpu_torch.graph.normalize import gcn_normalize
-    from gcn_tpu_torch.models.gcn_core import init_gcn_params
-    from gcn_tpu_torch.convert import params_to_numpy
-
-    adj, labels = t_sbm(n=256, n_classes=4, avg_degree=8.0, seed=3)
-    x = t_features(labels, feat_dim=16, seed=3)
-    p0 = params_to_numpy(init_gcn_params(torch.Generator().manual_seed(0),
-                                         16, 40, 4, device="cpu"))
-    want, want_lp = _port_run(gcn_normalize(adj), x, labels,
-                              np.ones(256, np.float32), p0, steps=4,
-                              dropout=0.5, exchange_chunk=16)
+    want, want_lp = one_process_of_gloo_problem()
     np.testing.assert_allclose(losses[0], want, rtol=1e-5, atol=0)
     np.testing.assert_allclose(lp, want_lp, rtol=1e-5, atol=1e-5)
 

@@ -1,6 +1,7 @@
 """gcn_tpu_torch imports, trains GCN and HGNN (both forms of G), runs the
 panel and frequency-split SpMMs, saves and resumes a training state, takes
-sharded training steps over two row bands, imports the host modules
+sharded training steps over two row bands and every exchange and layout
+flavor over four, imports the host modules
 (loaders, CSV dumps, row analysis, artifacts, profiling), reorders by
 gorder and profiles a fitted model's ops, with jax and gcn_tpu blocked."""
 
@@ -82,6 +83,33 @@ opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
 losses = [float(step(params, opt, (1, i), a, xs, ys, ms)) for i in range(2)]
 assert np.isfinite(losses).all() and len(losses) == 2
 assert eval_fn(params, a, xs).shape[1] == data.num_classes
+from gcn_tpu_torch.parallel import (HaloPlan, HierHaloPlan, build_halo_plan,
+                                    build_halo_plan_hier, build_sharded_ell,
+                                    create_mesh_hier, send_indices,
+                                    unpermute_rows)
+sg4 = shard_graph_by_rows(g, 4)
+for flavor in (dict(exchange="halo_padded", overlap=False),
+               dict(exchange="halo_hier", overlap="split"),
+               dict(exchange="halo_hier", hier_fanout="all_gather")):
+    mesh = (create_mesh_hier(2, 2, "cpu") if flavor["exchange"] == "halo_hier"
+            else create_mesh(4, "cpu"))
+    step, eval_fn, shard_fn = make_sharded_gcn_train_step(mesh, sg4,
+                                                          **flavor)
+    a, xs, ys, ms = shard_fn(data.features, data.labels,
+                             np.ones(data.num_nodes, np.float32))
+    params = init_gcn_params(torch.Generator().manual_seed(0),
+                             data.num_features, 8, data.num_classes,
+                             device="cpu")
+    opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
+    assert np.isfinite(float(step(params, opt, (1, 0), a, xs, ys, ms)))
+assert isinstance(build_halo_plan(sg4), HaloPlan)
+assert isinstance(build_halo_plan_hier(sg4, 2, 2), HierHaloPlan)
+adjs, takes, backs = build_sharded_ell(sg4, build_halo_plan(sg4),
+                                       part="interior", part_order=True,
+                                       device="cpu")
+y = torch.randn(sg4.rows_per_shard, 3)
+assert torch.equal(unpermute_rows(y, takes[0], backs[0])[backs[0]], y)
+assert len(send_indices(build_halo_plan_hier(sg4, 2, 2), [0], "cpu")[0]) == 3
 import gcn_tpu_torch.analysis.rows, gcn_tpu_torch.data.graphsaint
 import gcn_tpu_torch.data.planetoid, gcn_tpu_torch.ops.permute
 import gcn_tpu_torch.utils.artifacts, gcn_tpu_torch.utils.profiling
