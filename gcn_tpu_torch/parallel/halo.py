@@ -981,35 +981,30 @@ def _prep_all(x_bands, send_idx, pre, wire_dtype):
     return [r.contiguous() for r, _ in rows], rows[0][1]
 
 
-def _with_zero_head(recv, out_dtype):
-    """concat(zeros(8), recv) in the compute dtype: the padding edges'
-    target."""
-    return [torch.cat([r.new_zeros((8, r.shape[1])), r]).to(out_dtype)
-            for r in recv]
-
-
-def _exchange_halo_ragged(route, send_idx, x_bands, mesh, pre=None,
-                          wire_dtype=None) -> _PendingHalo:
-    """Start the per-offset exchange of the owned shards' boundary rows:
-    ``send_idx`` and ``x_bands`` list the owned shards in order. ``pre``
-    is applied to the gathered send rows before they leave (the
-    boundary-rows-first trick: with ``rows -> rows @ W`` the payload is the
-    transformed rows, so the full-band ``X @ W`` and the interior
+def _exchange_halo(route, zero_head, send_idx, x_bands, mesh, pre=None,
+                   wire_dtype=None) -> _PendingHalo:
+    """Start the one-route exchange of the owned shards' boundary rows
+    (``send_idx`` and ``x_bands`` list the owned shards in order): the
+    ragged plan's ring shifts, whose halo sits behind ``zero_head``'s 8 zero
+    rows (the padding edges' target), or the padded all-to-all of each
+    owned shard's ns x h_max send rows (the self slice included, as
+    gcn_tpu's all_to_all ships it; halo block s of shard d holds what s
+    sent d). ``pre`` is applied to the gathered send rows before they leave
+    (the boundary-rows-first trick: with ``rows -> rows @ W`` the payload is
+    the transformed rows, so the full-band ``X @ W`` and the interior
     aggregation can run while they travel). ``wire_dtype`` (bfloat16,
     float8_e4m3fn) casts the payload for the wire only."""
     rows, out_dtype = _prep_all(x_bands, send_idx, pre, wire_dtype)
     pending = _Pending(mesh, route, rows)
-    return _PendingHalo(lambda: _with_zero_head(pending.wait(), out_dtype))
 
+    def finish():
+        recv = pending.wait()
+        if zero_head:
+            recv = [torch.cat([r.new_zeros((8, r.shape[1])), r])
+                    for r in recv]
+        return [r.to(out_dtype) for r in recv]
 
-def _exchange_halo(route, send_idx, x_bands, mesh, pre=None,
-                   wire_dtype=None) -> _PendingHalo:
-    """Start the padded all-to-all: each owned shard's ns x h_max send rows
-    (the self slice included, as gcn_tpu's all_to_all ships it), the halo
-    block s of shard d holding what s sent d; no zero head."""
-    rows, out_dtype = _prep_all(x_bands, send_idx, pre, wire_dtype)
-    pending = _Pending(mesh, route, rows)
-    return _PendingHalo(lambda: [r.to(out_dtype) for r in pending.wait()])
+    return _PendingHalo(finish)
 
 
 def _exchange_halo_hier(routes, fan_rows, send_idx, x_bands, mesh, pre=None,
@@ -1091,12 +1086,12 @@ def make_halo_exchange(plan, wire_dtype=None):
         route = _Route(_shift_moves(plan.sizes,
                                     lambda a, i: (a + i + 1) % ns, ns),
                        rows, rows)
-        return partial(_exchange_halo_ragged, route, wire_dtype=wire_dtype)
+        return partial(_exchange_halo, route, True, wire_dtype=wire_dtype)
     h = plan.h_max
     route = _Route(tuple((a, b, b * h, a * h, h) for a in range(ns)
                          for b in range(ns)), ns * h, ns * h,
                    all_to_all=True)
-    return partial(_exchange_halo, route, wire_dtype=wire_dtype)
+    return partial(_exchange_halo, route, False, wire_dtype=wire_dtype)
 
 
 # ---------------------------------------------------------------------------

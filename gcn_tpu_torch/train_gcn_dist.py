@@ -16,7 +16,7 @@ the cards, gloo with ``--device cpu``):
     torchrun --nproc-per-node 2 -m gcn_tpu_torch.train_gcn_dist \\
         --shards 4 -g synth-arxiv -k 32
 
-Same flags as the gcn_tpu driver, less ``--halo-wire auto``;
+Same flags as gcn_tpu's script, less ``--halo-wire auto``;
 ``--save-state`` / ``--resume-state`` write and read the training
 state in gcn_tpu's checkpoint layout (``utils/checkpoint.py``). The dropout
 stream is a function of (seed, iteration, band), so a resumed run equals an
