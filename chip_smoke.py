@@ -52,8 +52,9 @@ Phases (each failure exits non-zero):
   6. a 5-step v6 fit (dropout 0) on the card and on the CPU from the same
      parameters: per-step losses agree at rtol 1e-4; the same 5 steps with
      each bf16 option agree with the card's f32 losses at 2e-2 and count
-     their K1 launches;
-  7. the main path: a default 20-step v6 fit on the card (dropout 0.5,
+     their K1 launches (the eager flavor, ``jit_loop=False``, whose host
+     counter sees every launch; so do phases 7, 8, 11 and 13's main runs);
+  7. the main path, eager: a 20-step v6 fit on the card (dropout 0.5,
      seed 15) with K1's launch count read around it; the loss falls, the
      output is finite, of shape (n, 40) and normalized, and K1 ran 4 (hoist)
      + 2 per step + 1 (eval) times;
@@ -62,8 +63,17 @@ Phases (each failure exits non-zero):
      0.5, seed 15) with K1's and K2's launch counts read around it: the
      loss falls, the output is finite and normalized, K2 ran 4 (hoist) + 2
      per step + 1 (eval) times and K1 none;
-  9. where a v6 step's time goes: 10 more steps under torch.profiler, with
-     K1's device ms per step;
+     [captured fit]: the default flavor, ``jit_loop=True`` (one CUDA graph
+     of a step, replayed), on the main path and the panel path against
+     phases 7 and 8 from the same parameters and generator (losses at rtol
+     1e-5, outputs at rtol 1e-5 + atol 1e-4, the generator's state
+     equal), both flavors' median step, the wrappers' host calls (the
+     warm-up steps and the captured one) and, in a second captured run
+     under torch.profiler, the kernel records of K1 (4 + 2 x 20 + 1) and
+     K2 (its launches an SpMM x 45); then 10 captured steps (replays)
+     under torch.profiler with the device-busy share;
+  9. where a v6 step's time goes: 10 more eager steps under
+     torch.profiler, with K1's device ms per step;
  10. resume: 10 v6 steps, ``save_state``, 10 more from it; the 20 losses
      equal the main path's at rtol 1e-6;
  11. the frequency split on phase 3's graph with ``freq_split_order``
@@ -119,10 +129,13 @@ Phases (each failure exits non-zero):
      each epoch, the row sum); 5 epochs card against CPU for both forms
      (losses at rtol 1e-4); the published recipe (n_hid 128, dropout 0.5,
      lr 1e-3, weight decay 5e-4, milestones [100], gamma 0.9) for 200
-     epochs on each form, where the loss falls, the output is finite, test
-     accuracy is above 0.5, and K1's launches equal the count reckoned from
-     the code (``hgnn_launches``); and 10 + 10 epochs resumed across a
-     milestone at 5 against 20 at rtol 1e-6;
+     epochs on each form, eager, where the loss falls, the output is
+     finite, test accuracy is above 0.5, and K1's launches equal the count
+     reckoned from the code (``hgnn_launches``); [captured fit] the same
+     200 epochs in the default captured flavor against them (losses rtol
+     1e-4, logits rtol and atol 1e-4, best val accuracy within one row,
+     the generator's state equal) with both flavors' median epoch; and 10
+     + 10 epochs resumed across a milestone at 5 against 20 at rtol 1e-6;
  14. [orders]: synth-arxiv after ``gcn_normalize``, each of the 9 reorder
      methods (its host seconds and route, native or numpy), then the degree
      sort and ``ell_adjacency(k_pad=32)`` on the card (slots, padding
@@ -130,16 +143,21 @@ Phases (each failure exits non-zero):
      float64 plain version at the f32 tolerance; K1's median of 30 calls
      beside its plain version, ``torch.sparse.mm`` on the same CSR and the
      bound;
- 15. [train_gcn flags]: ``train_gcn.main`` on the card, synth-arxiv -k 32
+ 15. [train_gcn flags], in a process of its own (``--train-gcn-flags``;
+     torch.profiler dropped records late in the one long process):
+     ``train_gcn.main`` on the card, synth-arxiv -k 32
      -i 20 --variant v6 --reorder gorder --profile-ops --save-path P
      --history-json H: the loss falls, K1 launches 4 + 2 x 20 + 1 times in
-     the fit and 4 a profile iteration, the profile's rows are gcn_tpu's
-     for the hoisted v6 orders, each finite and positive; then --load-path
-     P reaches the same test accuracy.
+     the fit (the default captured loop: kernel records under
+     torch.profiler) and 4 a profile iteration, the profile's rows are
+     gcn_tpu's for the hoisted v6 orders, each finite and positive; then
+     --load-path P reaches the same test accuracy.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
-path's shape, K2, and K1 at HGNN's, the frequency split's and the sharded
-parts' shapes (every flavor's new layouts too), each
+path's shape, K2 (each with ``captured_launches``, the captured fit's
+kernel records, and ``captured_host_calls``), and K1 at HGNN's, the
+frequency split's and the sharded parts' shapes (every flavor's new
+layouts too), each
 with the launches at its width of the run that uses it, and K1 after each
 reorder method (``use`` names it; ``launches``: the [orders] phase's own
 calls, or the train_gcn fit's for gorder); every bound counts 8 B a stored
@@ -297,13 +315,18 @@ def time_chain(fn, x, n_out_rows, reps):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def profile_steps(model, idx_train, steps):
+def profile_steps(model, idx_train, steps, captured=False):
     """Where a v6 training step's time goes: ``steps`` steps of the fitted
     model's own step (forward, masked NLL, backward, Adam) under
     torch.profiler; prints device time by kernel and the device's busy
-    share of the wall time (the profiler's own host cost included)."""
+    share of the wall time (the profiler's own host cost included). With
+    ``captured`` the step is captured into a CUDA graph by the port's
+    ``CapturedLoop`` (the loop of ``jit_loop=True``) and each profiled
+    step is one replay."""
     import numpy as np
     import torch
+
+    from gcn_tpu_torch.train.capture import WARMUP, CapturedLoop
 
     from gcn_tpu_torch.models.gcn_core import gcn_forward
     from gcn_tpu_torch.models.layers import auto_order
@@ -332,7 +355,12 @@ def profile_steps(model, idx_train, steps):
         loss.backward()
         opt.step()
 
-    profile_device("[profile]", step, steps)
+    if not captured:
+        profile_device("[profile]", step, steps)
+        return
+    loop = CapturedLoop(step, model.device, gen)
+    loop.run(WARMUP + 1)            # the eager warm-up, then the capture
+    profile_device("[captured profile]", loop.graph.replay, steps)
 
 
 def profile_device(label, step, steps):
@@ -373,6 +401,38 @@ def profile_device(label, step, steps):
         print("  the profiler recorded no device time: not measured")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms / steps:8.4f} ms/step  {name[:90]}")
+
+
+def kernel_records(fn, needle):
+    """(``fn()``, the device kernels whose name holds ``needle``) with
+    ``fn`` run under torch.profiler: the kernels a CUDA graph's replays
+    launch are counted too, which the wrappers' host counters cannot
+    see."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # margins inside the trace window, whose ends are host times: a
+        # kernel whose converted device time falls past an end is dropped
+        time.sleep(0.1)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    events = prof.events()
+    device = torch.autograd.DeviceType.CUDA
+    starts = sorted(evt.time_range.start for evt in events
+                    if evt.device_type == device and needle in evt.name)
+    replays = [evt.time_range.start for evt in events
+               if evt.device_type != device
+               and evt.name == "cudaGraphLaunch"]
+    first = min(replays, default=float("inf"))
+    print(f"  kernel_records({needle!r}): {len(starts)} records, "
+          f"{sum(1 for t in starts if t < first)} before the first of "
+          f"{len(replays)} graph launches; "
+          f"{sum(1 for evt in events if evt.device_type == device)} device "
+          f"records in all", flush=True)
+    return out, len(starts)
 
 
 def k1_arrays(adj, t=False):
@@ -463,10 +523,12 @@ def bound(bytes_moved, flops):
                                  else "operations")
 
 
-def panel_fit(params, feats, padj, labels, idx, steps, dropout, device):
+def panel_fit(params, feats, padj, labels, idx, steps, dropout, device,
+              jit_loop=True):
     """The panel path through the port's functional API: layer-1 A@X
     hoisted (``feats``, computed by the caller with ``hoist_spmm``), then
-    ``fit_gcn`` with ``adam_l2`` over ``gcn_forward`` on the PanelAdj."""
+    ``fit_gcn`` with ``adam_l2`` over ``gcn_forward`` on the PanelAdj, in
+    the loop flavor ``jit_loop`` (the captured one by default)."""
     import torch
 
     from gcn_tpu_torch.models.gcn_core import gcn_forward
@@ -484,7 +546,7 @@ def panel_fit(params, feats, padj, labels, idx, steps, dropout, device):
                            dropout_rate=dropout, train=train, generator=gen)
 
     return fit_gcn(params, adam_l2, forward, labels, idx, train_iters=steps,
-                   timers=Timers(device))
+                   timers=Timers(device), generator=gen, jit_loop=jit_loop)
 
 
 K1_REPLACES = "gcn_tpu/ops/ell_spmm.py:55"
@@ -561,6 +623,7 @@ def hgnn_phases(dev):
     from gcn_tpu_torch.models import HGNN
     from gcn_tpu_torch.ops import ell_spmm as es
     from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
+    from gcn_tpu_torch.train.capture import WARMUP
 
     n, f, classes = HGNN_N, HGNN_F, 40
     t0 = time.time()
@@ -658,15 +721,17 @@ def hgnn_phases(dev):
         check_close_losses(f"{form} card vs cpu", hist[dev], hist["cpu"],
                            1e-4)
 
-    runs = {}
+    runs, eager_models = {}, {}
     for form, G in forms:
         print(f"[HGNN main path] {form}, {HGNN_EPOCHS} epochs, the published "
-              f"recipe {HGNN_RECIPE}, seed {SEED}", flush=True)
+              f"recipe {HGNN_RECIPE}, seed {SEED}, the eager flavor",
+              flush=True)
         model = HGNN(f, classes, seed=SEED, device=dev, **HGNN_RECIPE)
         t0 = time.time()
         reset_launches()
+        # the eager flavor: the host counter counts every K1 launch
         model.fit(fts, G, labels, idx_train, idx_val=idx_test,
-                  num_epochs=HGNN_EPOCHS)
+                  num_epochs=HGNN_EPOCHS, jit_loop=False)
         torch.cuda.synchronize()
         launches = read_launches()
         fit_s = time.time() - t0
@@ -692,6 +757,39 @@ def hgnn_phases(dev):
         if not acc > 0.5:
             fail(f"HGNN {form}: test accuracy {acc:.4f} is not above 0.5")
         runs[form] = launches
+        eager_models[form] = model
+
+    print(f"[captured fit] HGNN, both forms of G, {HGNN_EPOCHS} epochs: the "
+          f"default flavor (jit_loop=True) against the eager fits above "
+          f"(losses rtol 1e-4, logits rtol and atol 1e-4; best val "
+          f"accuracy within one row)", flush=True)
+    for form, G in forms:
+        eager = eager_models[form]
+        cap = HGNN(f, classes, seed=SEED, device=dev, **HGNN_RECIPE)
+        t0 = time.time()
+        reset_launches()
+        cap.fit(fts, G, labels, idx_train, idx_val=idx_test,
+                num_epochs=HGNN_EPOCHS)
+        torch.cuda.synchronize()
+        host = read_launches()[0]
+        host_expected = hgnn_launches(cap.g_adj, f, WARMUP + 1)
+        print(f"  {form}: fit {time.time() - t0:.2f}s (lowering G "
+              f"included), fit_scan {cap.timers('fit_scan').d.total_ms:.3f}"
+              f" ms; best val accuracy {cap.best_acc:.4f} (eager "
+              f"{eager.best_acc:.4f}); K1 {host} host calls (expected "
+              f"{host_expected}: the hoist, the row sum, {WARMUP} warm-up "
+              f"epochs, the captured one, the evaluation)", flush=True)
+        captured_report(f"HGNN {form} epoch", (losses_of(cap), cap.output),
+                        (losses_of(eager), eager.output),
+                        (cap.median_epoch_ms, eager.median_epoch_ms),
+                        rtol=1e-4, atol=1e-4)
+        if host != host_expected:
+            fail(f"captured HGNN {form}: {host} K1 host calls")
+        if abs(cap.best_acc - eager.best_acc) > 1.0 / len(idx_test) + 1e-7:
+            fail(f"captured HGNN {form}: best val accuracy "
+                 f"{cap.best_acc} against {eager.best_acc}")
+        if not torch.equal(cap._rng_state, eager._rng_state):
+            fail(f"captured HGNN {form} leaves another dropout stream")
 
     print("[HGNN resume] dense G, 10 + save_state + 10 epochs against 20, "
           "milestone at 5, dropout 0.5", flush=True)
@@ -799,8 +897,9 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
             adj_options={"freq_split": True, "hot_rows": hot_rows})
     m.params = params_from_numpy(p0, dev)
     reset_launches()
+    # the eager flavor: the host counter counts every K1 launch
     m.fit(data.features, data.adj, data.labels, data.idx_train,
-          train_iters=5, initialize=False)
+          train_iters=5, initialize=False, jit_loop=False)
     torch.cuda.synchronize()
     launches = read_launches()
     parts = 2 * (-(-data.num_features // 32) + 2 * 5 + 1)
@@ -1467,27 +1566,63 @@ def orders_phase(dev, data):
 PROFILE_ROWS = ["l1_xw", "l1_bi", "l2_af", "l2_xw", "l2_bi", "fwd", "bwd"]
 
 
-def train_gcn_flags_phase(order_rows):
+TRAIN_GCN_FLAGS = "--train-gcn-flags"
+
+
+def train_gcn_flags_in_child(order_rows):
+    """``train_gcn_flags_phase`` in a process of its own (this script with
+    ``--train-gcn-flags``), waited for: torch.profiler dropped one of the
+    fit's eager K1 records (and 13 other device records) when this phase
+    ran late in the smoke's one long process (twice in two runs), never
+    in a fresh one. The gorder row of ``order_rows`` takes the fit's
+    count."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           TRAIN_GCN_FLAGS], capture_output=True, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        print("\n".join(lines) + "\n" + proc.stderr[-3000:], flush=True)
+        fail(f"the [train_gcn flags] process exited {proc.returncode}")
+    print("\n".join(lines[:-1]), flush=True)
+    launches, by_k, path = json.loads(lines[-1])
+    for row in order_rows:
+        if row["use"] == "gorder":
+            row["launches"], row["path"] = launches, path
+            row["launches_by_k"] = {int(k): n for k, n in by_k.items()}
+
+
+def train_gcn_flags_phase():
     """``train_gcn.main`` on the card with the flags this slice adds:
     synth-arxiv, v6 after gorder, 20 steps, --profile-ops, --save-path and
-    --history-json; then --load-path of the saved params. K1's launches
-    are read around the fit (up to the profile) and around the profile;
-    the gorder row of ``order_rows`` takes the fit's count."""
+    --history-json; then --load-path of the saved params. The CLI runs the
+    default captured loop, so K1's launches in the fit are counted from
+    the profiler's kernel records (``GCN.fit`` runs under torch.profiler)
+    and the host counter reads the warm-up steps and the captured call;
+    the profile's launches are read around it on the host counter (it
+    runs its ops eagerly). Returns the fit's K1 launches, by width, and
+    the run's command line."""
     import tempfile
 
     from gcn_tpu_torch import train_gcn
     from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.train.capture import WARMUP
 
     steps, method = 20, "gorder"
     seen = {}
-    profile_ops = GCN.profile_ops
+    profile_ops, fit = GCN.profile_ops, GCN.fit
 
     def profiled(self, *args, **kw):
-        seen["fit"] = read_launches()
         reset_launches()
         seen["timers"] = profile_ops(self, *args, **kw)
         seen["profile"] = read_launches()
         return seen["timers"]
+
+    def profiled_fit(self, *args, **kw):
+        reset_launches()
+        out, seen["fit_records"] = kernel_records(
+            lambda: fit(self, *args, **kw), "ell_spmm")
+        seen["fit"] = read_launches()
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         params = os.path.join(tmp, "params.npz")
@@ -1497,36 +1632,38 @@ def train_gcn_flags_phase(order_rows):
         shown = argv + ["--profile-ops", "--save-path", "P",
                         "--history-json", "H"]
         print(f"[train_gcn flags] train_gcn.main({shown})", flush=True)
-        GCN.profile_ops = profiled
+        GCN.profile_ops, GCN.fit = profiled, profiled_fit
         try:
-            reset_launches()
             acc = train_gcn.main(argv + ["--profile-ops", "--save-path",
                                          params, "--history-json",
                                          hist_path])
         finally:
-            GCN.profile_ops = profile_ops
+            GCN.profile_ops, GCN.fit = profile_ops, fit
         with open(hist_path) as f:
             hist = json.load(f)
         print("[train_gcn flags] --load-path P", flush=True)
         loaded = train_gcn.main(argv + ["--load-path", params])
     losses = [h["loss_train"] for h in hist["history"]]
-    fit_launches = seen["fit"]
+    fit_host, records = seen["fit"], seen["fit_records"]
     expected = 4 + 2 * steps + 1
+    host_expected = 4 + 2 * (WARMUP + 1) + 1
     timers = seen["timers"]
     profile_expected = (20 + 5) * 4     # l2_af, fwd, and bwd's two a row
     print(f"[train_gcn flags] losses first {losses[0]:.6f} last "
           f"{losses[-1]:.6f}; test accuracy {acc:.4f}, after --load-path "
           f"{loaded:.4f}; history keys {sorted(hist)}", flush=True)
-    print(f"  K1 launches: fit {fit_launches[0]} by width "
-          f"{fit_launches[1]} (expected {expected} = 4 hoist + 2 x {steps} "
-          f"steps + 1 eval); profile {seen['profile'][0]} (expected "
+    print(f"  K1 launches: fit {records} kernel records under "
+          f"torch.profiler (expected {expected} = 4 hoist + 2 x {steps} "
+          f"steps + 1 eval), {fit_host[0]} host calls by width "
+          f"{fit_host[1]} (expected {host_expected}: {WARMUP} warm-up steps "
+          f"and the captured one); profile {seen['profile'][0]} (expected "
           f"{profile_expected})", flush=True)
     print(f"  profile_ops rows {timers.names()}, median device ms: "
           + ", ".join(f"{name} {timers(name).d.median_ms:.4f}"
                       for name in timers.names()), flush=True)
-    if fit_launches[0] != expected:
-        fail(f"train_gcn fit: {fit_launches[0]} K1 launches, expected "
-             f"{expected}")
+    if records != expected or fit_host[0] != host_expected:
+        fail(f"train_gcn fit: {records} K1 kernel records, {fit_host[0]} "
+             f"host calls, expected {expected} and {host_expected}")
     if seen["profile"][0] != profile_expected:
         fail(f"profile_ops: {seen['profile'][0]} K1 launches, expected "
              f"{profile_expected}")
@@ -1541,11 +1678,14 @@ def train_gcn_flags_phase(order_rows):
             fail(f"profile_ops row {name}: {samples}")
     if loaded != acc:
         fail(f"--load-path test accuracy {loaded} != the fit's {acc}")
-    for row in order_rows:
-        if row["use"] == method:
-            row["launches"], row["launches_by_k"] = fit_launches
-            row["path"] = (f"train_gcn -g synth-arxiv -k 32 -i {steps} "
-                           f"--variant v6 --reorder {method}")
+    # every K1 call of this fit is at k = 32 (the hoist's tiles, layer 2
+    # and its dX): the records are the launches at that width
+    if len(fit_host[1]) != 1:
+        fail(f"train_gcn fit: K1 called at widths {fit_host[1]}")
+    (k,) = fit_host[1]
+    return records, {k: records}, (f"train_gcn -g synth-arxiv -k 32 -i "
+                                   f"{steps} --variant v6 --reorder "
+                                   f"{method}")
 
 
 def gcn_resume_phase(dev, data, uninterrupted):
@@ -1573,6 +1713,130 @@ def gcn_resume_phase(dev, data, uninterrupted):
                        + losses_of(second), uninterrupted, 1e-6)
 
 
+# captured against eager on the card: the same kernels in the same order
+# and the same capturable Adam, so they differ at most by the order of
+# index_add_'s atomic adds (the hub epilogue's): GCN losses at rtol 1e-5
+# and log-probs at rtol 1e-5 + atol 1e-4 (test_torch_port_model.py's);
+# HGNN's 200 epochs at the card-vs-CPU rtol 1e-4, logits rtol and atol
+# 1e-4 (test_torch_port_hgnn.py's)
+CAPTURED_RTOL = 1e-5
+
+
+def captured_report(label, captured, eager, ms, rtol=CAPTURED_RTOL,
+                    atol=1e-4):
+    """Hold a captured fit's (losses, output) against the eager fit's
+    from the same parameters and generator; print both flavors' median
+    step or epoch, ``ms`` = (captured, eager)."""
+    import torch
+
+    bitwise = (captured[0] == eager[0] and torch.equal(captured[1],
+                                                      eager[1]))
+    print(f"  {label}: median {ms[0]:.4f} ms captured against {ms[1]:.4f} "
+          f"ms eager ({ms[1] / ms[0]:.2f}x); bit-equal: {bitwise}",
+          flush=True)
+    check_close_losses(f"{label} captured vs eager losses", captured[0],
+                       eager[0], rtol)
+    compare(f"{label} captured vs eager output", captured[1], eager[1],
+            rtol=rtol, atol=atol)
+
+
+def captured_gcn_phase(dev, data, eager, panel):
+    """[captured fit]: the default loop flavor (``jit_loop=True``), one
+    CUDA graph of a training step replayed, on the main path (GCN v6,
+    synth-arxiv, 20 steps, dropout 0.5, seed 15) and on the panel path,
+    against the eager fits of phases 7 and 8 from the same parameters and
+    generator seed. The wrappers' host counters count the warm-up steps
+    and the captured call; the kernels the replays launch are counted
+    from the profiler's kernel records, in a second captured run. Then the
+    captured step's device-busy share under torch.profiler. Returns
+    {path: (profiler records, host calls)}."""
+    import torch
+
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops import panel_spmm as ps
+    from gcn_tpu_torch.train.capture import WARMUP
+
+    steps = len(eager.history)
+    nfeat, nhid, ncls = data.num_features, eager.nhid, eager.nclass
+    host_expected = 4 + 2 * (WARMUP + 1) + 1
+    records_expected = 4 + 2 * steps + 1
+
+    def main_path():
+        m = GCN(nfeat, nhid, ncls, variant="v6", seed=SEED, device=dev)
+        m.fit(data.features, data.adj, data.labels, data.idx_train,
+              train_iters=steps)
+        return m
+
+    print(f"[captured fit] GCN v6 main path, {steps} steps, dropout 0.5, "
+          f"seed {SEED}: the default flavor (jit_loop=True) against the "
+          f"[main path]'s eager fit", flush=True)
+    t0 = time.time()
+    reset_launches()
+    cap = main_path()
+    torch.cuda.synchronize()
+    host = es.spmm_ell_launches
+    acc = cap.test(data.idx_test, verbose=False)
+    acc_eager = eager.test(data.idx_test, verbose=False)
+    print(f"  fit {time.time() - t0:.2f}s (preprocessing included); "
+          f"fit_scan {cap.timers('fit_scan').d.total_ms:.3f} ms; test "
+          f"accuracy {acc:.4f} (eager {acc_eager:.4f}); generator state "
+          f"equal to the eager fit's: "
+          f"{torch.equal(cap._rng_state, eager._rng_state)}", flush=True)
+    captured_report("main path step", (losses_of(cap), cap.output),
+                    (losses_of(eager), eager.output),
+                    (cap.timers("step").d.median_ms,
+                     eager.timers("step").d.median_ms))
+    if not torch.equal(cap._rng_state, eager._rng_state):
+        fail("the captured fit leaves another dropout stream")
+    if abs(acc - acc_eager) > 2.0 / len(data.idx_test):
+        fail(f"captured test accuracy {acc} against eager {acc_eager}")
+    cap2, records = kernel_records(main_path, "ell_spmm")
+    print(f"  K1: {host} host calls (expected {host_expected} = 4 hoist + "
+          f"2 x ({WARMUP} warm-up + 1 captured) + 1 eval); {records} "
+          f"kernel records under torch.profiler (expected "
+          f"{records_expected} = 4 + 2 x {steps} + 1)", flush=True)
+    if host != host_expected or records != records_expected:
+        fail(f"captured main path: K1 {host} host calls, {records} "
+             f"records")
+    check_close_losses("main path profiled captured run vs the first",
+                       losses_of(cap2), losses_of(cap), CAPTURED_RTOL)
+    profile_steps(cap, data.idx_train, 10, captured=True)
+
+    pfeats_of, padj, labels, idx_train, init, panel_eager = panel
+    print(f"[captured fit] panel path, {steps} steps, dropout 0.5, seed "
+          f"{SEED}: the default flavor against phase 8's eager fit",
+          flush=True)
+    kernels_per_spmm = int(padj.heavy.numel() > 0) + int(
+        padj.light.numel() > 0)
+
+    def panel_path():
+        return panel_fit(init, pfeats_of(), padj, labels, idx_train, steps,
+                         0.5, dev)
+
+    reset_launches()
+    pres = panel_path()
+    torch.cuda.synchronize()
+    phost, k1_host = ps.spmm_panel_launches, es.spmm_ell_launches
+    captured_report("panel path step", (losses_of(pres), pres.log_probs),
+                    (losses_of(panel_eager), panel_eager.log_probs),
+                    (pres.timers("step").d.median_ms,
+                     panel_eager.timers("step").d.median_ms))
+    if not torch.equal(pres.rng_state, panel_eager.rng_state):
+        fail("the captured panel fit leaves another dropout stream")
+    _, precords = kernel_records(panel_path, "panel_spmm")
+    precords_expected = kernels_per_spmm * records_expected
+    print(f"  K2: {phost} host calls (expected {host_expected}), K1 "
+          f"{k1_host}; {precords} kernel records under torch.profiler "
+          f"(expected {precords_expected} = {kernels_per_spmm} launches "
+          f"an SpMM x {records_expected})", flush=True)
+    if (phost != host_expected or k1_host != 0
+            or precords != precords_expected):
+        fail(f"captured panel path: K2 {phost} host calls, {precords} "
+             f"records, K1 {k1_host}")
+    return {"main": (records, host), "panel": (precords, phost)}
+
+
 def main():
     import torch
 
@@ -1580,6 +1844,11 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == [TRAIN_GCN_FLAGS]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(train_gcn_flags_phase()), flush=True)
+        return 0
     import numpy as np
 
     from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
@@ -1905,8 +2174,9 @@ def main():
                 adj_options=opts, device=device)
         m.params = params_from_numpy(p0, device)
         es.spmm_ell_launches = 0
+        # the eager flavor: the host counter counts every K1 launch
         m.fit(data.features, data.adj, data.labels, data.idx_train,
-              train_iters=5, initialize=False)
+              train_iters=5, initialize=False, jit_loop=False)
         bf16_launches[name] = es.spmm_ell_launches
         hist[name] = [h["loss_train"] for h in m.history]
         print(f"  {name}: losses {hist[name]} ({bf16_launches[name]} K1 "
@@ -1930,12 +2200,14 @@ def main():
     # ---- 7. the main path ------------------------------------------------
     steps = 20
     print(f"[main path] GCN v6 fit, {steps} steps, hidden {nhid}, "
-          f"dropout 0.5, seed {SEED}", flush=True)
+          f"dropout 0.5, seed {SEED}, the eager flavor (jit_loop=False: "
+          f"the host counter counts every K1 launch; the default captured "
+          f"flavor is the [captured fit] phase's)", flush=True)
     model = GCN(nfeat, nhid, ncls, variant="v6", seed=SEED, device="cuda")
     t0 = time.time()
     es.spmm_ell_launches = 0
     model.fit(data.features, data.adj, data.labels, data.idx_train,
-              train_iters=steps)
+              train_iters=steps, jit_loop=False)
     torch.cuda.synchronize()
     launches = es.spmm_ell_launches
     fit_s = time.time() - t0
@@ -1973,7 +2245,7 @@ def main():
     es.spmm_ell_launches = ps.spmm_panel_launches = 0
     pfeats = hoist_spmm(padj, feats)
     res = panel_fit(params_from_numpy(p0, dev), pfeats, padj, labels,
-                    idx_train, 5, 0.0, dev)
+                    idx_train, 5, 0.0, dev, jit_loop=False)
     lpan = np.array([h["loss_train"] for h in res.history])
     if not np.allclose(lpan, lc, rtol=1e-4, atol=0):
         fail(f"panel and ELL path losses disagree: {lpan} vs {lc}")
@@ -1984,7 +2256,10 @@ def main():
     t0 = time.time()
     es.spmm_ell_launches = ps.spmm_panel_launches = 0
     pfeats = hoist_spmm(padj, feats)
-    res = panel_fit(init, pfeats, padj, labels, idx_train, steps, 0.5, dev)
+    # the eager flavor: the host counter counts every K2 launch
+    res = panel_fit(init, pfeats, padj, labels, idx_train, steps, 0.5, dev,
+                    jit_loop=False)
+    panel_eager = res
     torch.cuda.synchronize()
     launches2, k1_in_panel = ps.spmm_panel_launches, es.spmm_ell_launches
     plosses = [h["loss_train"] for h in res.history]
@@ -2011,6 +2286,11 @@ def main():
     if pnorm > 1e-4:
         fail(f"panel log-probs are not normalized ({pnorm:.2e})")
 
+    # ---- [captured fit]: the default loop flavor -------------------------
+    captured = captured_gcn_phase(
+        dev, data, model, (lambda: hoist_spmm(padj, feats), padj, labels,
+                           idx_train, init, panel_eager))
+
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
 
@@ -2020,7 +2300,7 @@ def main():
     dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0)
     hgnn_rows = hgnn_phases(dev)
     order_rows = orders_phase(dev, data)
-    train_gcn_flags_phase(order_rows)
+    train_gcn_flags_in_child(order_rows)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2043,6 +2323,8 @@ def main():
         "products_bf16_plain_ms": bf16_ms["products_bf16"][1],
         "products_bf16_max_abs_err": bf16_err["products_bf16"],
         "products_bf16_launches": bf16_launches["products_bf16"],
+        "captured_launches": captured["main"][0],
+        "captured_host_calls": captured["main"][1],
     }, {
         "name": "panel_spmm",
         "route": "cuda",
@@ -2058,6 +2340,8 @@ def main():
         "heavy_ms": heavy_ms,
         "light_ms": light_ms,
         "heavy_windows": padj.heavy.numel(),
+        "captured_launches": captured["panel"][0],
+        "captured_host_calls": captured["panel"][1],
     }] + hgnn_rows + freq_rows + dist_rows + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -196,10 +196,14 @@ class GCN:
             verbose: bool = False, normalize: bool = True,
             patience: int = 500, mode: str = "auto",
             name: str = "dataset", dump_adj_csv: Optional[str] = None,
-            resume_from: Optional[str] = None):
+            resume_from: Optional[str] = None, jit_loop: bool = True):
         """Train; ``resume_from`` continues from a ``save_state`` checkpoint
         of either package (params, Adam state, iteration count and, from
         this package on the same device type, the dropout stream).
+        ``jit_loop`` picks the loop flavor of ``fit_gcn``: the whole run
+        as replays of one captured CUDA graph (the default, as gcn_tpu's
+        ``lax.scan``), or eager steps; checkpoints of either resume in
+        either.
         ``dump_adj_csv`` names a directory to write the normalized
         adjacency to, as ``<name>.csv`` (``utils/writecsv.py``), before any
         reordering."""
@@ -269,7 +273,7 @@ class GCN:
             forward, self.labels, idx_train, idx_val,
             train_iters=train_iters, mode=mode, patience=patience,
             verbose=verbose, timers=self.timers, opt_state=opt_state,
-            start_iter=self._iters_done, generator=gen)
+            start_iter=self._iters_done, generator=gen, jit_loop=jit_loop)
         self.params = result.params
         self.opt_state = result.opt_state
         self._final_params = result.final_params

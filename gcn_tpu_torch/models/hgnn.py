@@ -5,8 +5,12 @@ The port of ``gcn_tpu.models.hgnn``: two HGNN_conv layers
 hypergraph operator G (``graph.hypergraph.generate_G_from_H``, or its two
 factors as a ``TwoHopAdj``), with the reference's recipe
 (pyhgnn/train.py:47-155): Adam (lr 1e-3, classic L2 weight decay 5e-4),
-MultiStepLR, cross-entropy, best-val snapshot. Weights and biases start
-at U(-1/sqrt(out), 1/sqrt(out)) (pyhgnn/models/layers.py).
+MultiStepLR (``lr_at``, set before each epoch), cross-entropy, best-val
+snapshot. ``fit`` runs the epochs as replays of one captured CUDA graph
+(``jit_loop=True``, the default, gcn_tpu's ``lax.scan``) or eagerly;
+both flavors run one ``step`` and give bit-equal results on the CPU.
+Weights and biases start at U(-1/sqrt(out), 1/sqrt(out))
+(pyhgnn/models/layers.py).
 
 Every G-product goes through ``ops.spmm``: kernel K1 when G (or a factor)
 is lowered to the ELL layout, which ``HGNN._lower`` does past an
@@ -28,7 +32,9 @@ from gcn_tpu_torch.models.layers import dropout as dropout_fn
 from gcn_tpu_torch.models.layers import init_linear
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import TwoHopAdj, hoist_spmm, spmm
+from gcn_tpu_torch.train.capture import CapturedLoop
 from gcn_tpu_torch.train.metrics import accuracy
+from gcn_tpu_torch.train.optim import adam_l2
 from gcn_tpu_torch.utils.checkpoint import named_leaves, snapshot
 from gcn_tpu_torch.utils.device import resolve_device
 from gcn_tpu_torch.utils.timers import Marks, Timers
@@ -138,11 +144,15 @@ class HGNN:
 
     def fit(self, features, G, labels, idx_train, idx_val=None, *,
             num_epochs: int = 600, verbose: bool = False,
-            print_freq: int = 100, resume_from: Optional[str] = None):
+            print_freq: int = 100, resume_from: Optional[str] = None,
+            jit_loop: bool = True):
         """Train for ``num_epochs``; with ``idx_val`` keep the parameters
         of the best validation accuracy (tracked on the device: the host
         waits once, after the last epoch). ``resume_from`` continues from a
-        ``save_state`` checkpoint of either package."""
+        ``save_state`` checkpoint of either package. ``jit_loop`` (the
+        default, as in gcn_tpu) runs the epochs as replays of one captured
+        CUDA graph (``train/capture.py``; plain calls of the same epoch on
+        the CPU); ``jit_loop=False`` runs them eagerly."""
         adj = self.g_adj = self._adjacency(G)
         dev = self.device
         x = torch.as_tensor(np.asarray(features), dtype=torch.float32,
@@ -180,18 +190,29 @@ class HGNN:
         params = {name: {k: t.detach().clone().requires_grad_(True)
                          for k, t in layer.items()}
                   for name, layer in self.params.items()}
-        opt = torch.optim.Adam([t for _, t in named_leaves(params)],
-                               lr=self.lr, weight_decay=self.weight_decay)
+        leaves = [t for _, t in named_leaves(params)]
+        # MultiStepLR's rate, set before each epoch: on a CUDA device a
+        # tensor that the captured epoch reads, filled at a milestone
+        rate = self.lr_at(schedule_at)
+        lr = (torch.tensor(rate, device=dev) if dev.type == "cuda"
+              else rate)
+        opt = adam_l2(leaves, lr, self.weight_decay)
         if adam_state:
             full = opt.state_dict()
             full["state"] = adam_state
             opt.load_state_dict(full)
-        sched = torch.optim.lr_scheduler.MultiStepLR(
-            opt, milestones=self.milestones, gamma=self.gamma)
-        if schedule_at:
-            sched.last_epoch = schedule_at
+
+        def set_rate(epoch):
+            nonlocal rate
+            new = self.lr_at(schedule_at + epoch)
+            if new == rate:
+                return
+            rate = new
             for group in opt.param_groups:
-                group["lr"] = self.lr_at(schedule_at)
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(new)
+                else:
+                    group["lr"] = new
 
         # the training-invariant layer-1 aggregation: GX in column chunks,
         # and the row sums for the bias term (hgnn_forward's expansion)
@@ -206,11 +227,15 @@ class HGNN:
                                     g_rowsum=g_rowsum)
 
         best_params = snapshot(params)
+        best = [t for _, t in named_leaves(best_params)]
         best_acc = torch.tensor(-float("inf"), device=dev)
-        losses, accs = [], []
-        marks = Marks(dev)
-        marks.mark()
-        for _ in range(num_epochs):
+        epoch = torch.zeros(1, dtype=torch.int64, device=dev)
+        losses = torch.full((num_epochs,), float("nan"), device=dev)
+        accs = torch.full((num_epochs,), float("nan"), device=dev)
+
+        def step():
+            """One epoch: the training step, its loss and the best-val
+            select, recorded at index ``epoch`` of the device buffers."""
             opt.zero_grad(set_to_none=True)
             logits = hgnn_forward(params, None, adj, dropout=self.dropout,
                                   train=True, generator=gen, gx=gx,
@@ -218,23 +243,33 @@ class HGNN:
             loss = cross_entropy(logits, labels, idx_train)
             loss.backward()
             opt.step()
-            sched.step()
-            losses.append(loss.detach())
-            if idx_val is not None:
-                acc = accuracy(torch.log_softmax(evaluate(params), 1),
-                               labels, idx_val)
-                take = acc > best_acc
-                best_acc = torch.where(take, acc, best_acc)
-                with torch.no_grad():
-                    for (_, b), (_, p) in zip(named_leaves(best_params),
-                                              named_leaves(params)):
+            with torch.no_grad():
+                losses.index_copy_(0, epoch, loss.detach().reshape(1))
+                if idx_val is not None:
+                    acc = accuracy(torch.log_softmax(evaluate(params), 1),
+                                   labels, idx_val)
+                    take = acc > best_acc
+                    best_acc.copy_(torch.where(take, acc, best_acc))
+                    for b, p in zip(best, leaves):
                         b.copy_(torch.where(take, p, b))
-                accs.append(acc)
+                    accs.index_copy_(0, epoch, acc.reshape(1))
+                epoch.add_(1)
+
+        marks = Marks(dev)
+        if jit_loop:
+            with self.timers("fit_scan").d:
+                CapturedLoop(step, dev, gen).run(num_epochs, set_rate,
+                                                 marks)
+        else:
+            for e in range(num_epochs):
+                set_rate(e)
+                marks.mark()
+                step()
             marks.mark()
         self.epoch_ms = marks.intervals_ms()
 
-        losses = torch.stack(losses).tolist() if losses else []
-        accs = torch.stack(accs).tolist() if accs else []
+        losses = losses.tolist()
+        accs = accs.tolist() if idx_val is not None else []
         self.history = [
             {"epoch": self._epochs_done + e, "loss_train": loss_e,
              **({"acc_val": accs[e]} if accs else {})}
@@ -246,7 +281,7 @@ class HGNN:
                     msg += f" val_acc {accs[e]:.4f}"
                 print(msg)
         self.opt_state = opt.state_dict()["state"]
-        self._schedule_at = sched.last_epoch
+        self._schedule_at = schedule_at + num_epochs
         self._final_params = snapshot(params)
         self._rng_state = gen.get_state()
         self._epochs_done += num_epochs

@@ -68,7 +68,9 @@ def auto_order(n_in: int, n_out: int) -> str:
 def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
             train: bool) -> torch.Tensor:
     """Inverted dropout; the mask is drawn from ``generator`` (which lives
-    on x's device)."""
+    on x's device). Inside a captured CUDA graph the generator must be
+    registered with the graph (``train/capture.py`` does so), or every
+    replay would draw the captured masks again."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate

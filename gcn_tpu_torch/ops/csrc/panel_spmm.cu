@@ -299,7 +299,11 @@ cudaError_t allow_smem() {
 // so that the long hub parts start first) and the events of the fork and
 // the join, made once per device. One SpMM at a time uses them: `mu` is
 // held from the fork's record to the join's wait, so another host thread
-// cannot re-record `fork` before the side stream has waited on it.
+// cannot re-record `fork` before the side stream has waited on it. Under
+// a CUDA graph capture the record and the wait fork the side stream into
+// the capture and join it back, so the graph holds both launches; the
+// stream, the events and allow_smem's attribute are made by a call before
+// any capture (a captured fit's eager warm-up, train/capture.py).
 struct Side {
   std::mutex mu;
   cudaStream_t stream = nullptr;

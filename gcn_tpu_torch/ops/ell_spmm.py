@@ -39,7 +39,9 @@ from gcn_tpu_torch.ops import _build
 from gcn_tpu_torch.ops._align import aligned_rows
 
 # kernel launches of K1; each launch adds one (read by chip_smoke.py), and
-# one to the count of its width k (x's column count)
+# one to the count of its width k (x's column count). These count the
+# wrapper's host calls: a call inside a CUDA graph capture counts once, and
+# the graph's replays (train/capture.py) launch K1 again without a call
 spmm_ell_launches = 0
 spmm_ell_launches_by_k = {}
 
@@ -100,6 +102,7 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
         return out
     x, ldx = aligned_rows(x, "K1")
     lib = _kernel_library()
+    # the current stream: under a CUDA graph capture, the capturing one
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.gcn_ell_spmm(
         x.data_ptr(), ldx, cols.data_ptr(), vals.data_ptr(),

@@ -16,7 +16,11 @@ never through ``device_adjacency``.
     SpMM is two kernel launches: the plan's heavy windows, each split
     across a thread block cluster, on a side stream forked from the
     current one, and beside them its light ones; the current stream waits
-    for both. It counts once in ``spmm_panel_launches``;
+    for both. It counts once in ``spmm_panel_launches`` (a host call: the
+    replays of a captured CUDA graph launch K2 without one). Under a
+    capture the fork and the join are recorded into the graph; the side
+    stream, its events and the kernels' shared-memory limit are made at
+    the first call, which a captured fit makes in its eager warm-up;
   * on a CPU tensor it runs ``_panel_spmm_plain``, the same function in
     plain torch (products ``x[cols] * vals``, ``index_add_`` into
     ``row_base + local_row``, padding dropped).

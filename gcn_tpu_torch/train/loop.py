@@ -6,9 +6,24 @@
     accuracy, each take the snapshot (the later improvement wins);
   * ``early_stop`` — patience on the val loss.
 
-A plain Python loop of eager steps (forward, loss, backward, Adam). The
-"step" device timer covers each step and restarts after the first
-``WARMUP`` steps, the reference's convention (gcn5.py:273-291).
+Two loop flavors, as in gcn_tpu:
+
+  * ``jit_loop=True`` (the default): gcn_tpu's ``_fit_scanned``, the whole
+    fit as one device-side loop (``train/capture.py``): on a CUDA device
+    one captured CUDA graph of one iteration, replayed ``train_iters``
+    times; the best-val snapshot and the patience counter are selects
+    into preallocated device buffers, and the per-iteration losses,
+    val losses and val accuracies are read once, after the run. A
+    stopped iteration (``early_stop``) is computed and discarded: it
+    changes neither the parameters, nor Adam's state, nor the dropout
+    generator, and does not count in ``iters_run``. ``fit_scan`` times the
+    whole loop; the "step" timer holds the time between replays;
+  * ``jit_loop=False``: a plain Python loop of eager steps (forward, loss,
+    backward, Adam) that reads each step's loss on the host.
+
+The "step" device timer covers each step and restarts after the first
+``WARMUP`` steps, the reference's convention (gcn5.py:273-291). On the
+CPU the two flavors run the same arithmetic and give bit-equal results.
 
 A run resumes from a checkpoint (``utils.checkpoint``) with ``opt_state``,
 the Adam state it saved, and ``start_iter``, the updates already done;
@@ -22,9 +37,11 @@ from typing import Callable, Optional
 
 import torch
 
+from gcn_tpu_torch.train.capture import CapturedLoop
 from gcn_tpu_torch.train.metrics import accuracy, masked_nll
-from gcn_tpu_torch.utils.checkpoint import named_leaves, snapshot
-from gcn_tpu_torch.utils.timers import Timers
+from gcn_tpu_torch.utils.checkpoint import (named_leaves, snapshot,
+                                           tree_like)
+from gcn_tpu_torch.utils.timers import Marks, Timers
 
 WARMUP = 10
 
@@ -59,10 +76,15 @@ def fit_gcn(
     start_iter: int = 0,               # updates done before this run
     generator: Optional[torch.Generator] = None,  # the one ``forward``
                                                   # draws dropout from
+    jit_loop: bool = True,
 ) -> TrainResult:
     """Train ``params`` (a nested dict, copied) for ``train_iters`` steps.
     ``history`` and ``best_iter`` count iterations from ``start_iter``;
-    ``rng_state`` is ``generator``'s state after the last step."""
+    ``rng_state`` is ``generator``'s state after the last step. With
+    ``jit_loop`` on a CUDA device, ``forward`` must be capturable (no host
+    reads of device values) and draw its random numbers only from
+    ``generator``, and ``make_optimizer`` must give a capturable optimizer
+    (``adam_l2`` does on the card)."""
     if mode == "auto":
         mode = "no_val" if idx_val is None else "val"
     if mode not in ("no_val", "val", "early_stop"):
@@ -82,6 +104,13 @@ def fit_gcn(
     def eval_forward(p):
         with torch.no_grad():
             return forward(p, False)
+
+    if jit_loop:
+        return _fit_captured(params, opt, forward, eval_forward, labels,
+                             idx_train, idx_val, train_iters=train_iters,
+                             mode=mode, patience=patience, verbose=verbose,
+                             timers=timers, start_iter=start_iter,
+                             generator=generator)
 
     best_params, best_lp = None, None
     best_loss_val = float("inf")
@@ -148,3 +177,128 @@ def fit_gcn(
                        final_params=final, iters_run=len(history),
                        opt_state=opt.state_dict()["state"],
                        rng_state=rng_state)
+
+
+def _fit_captured(params, opt, forward, eval_forward, labels, idx_train,
+                  idx_val, *, train_iters, mode, patience, verbose, timers,
+                  start_iter, generator):
+    """gcn_tpu's ``_fit_scanned`` (gcn_tpu/train/loop.py:187-316): one
+    training iteration as a device-side ``body``, run ``train_iters`` times
+    by ``CapturedLoop``. Its state lives in device tensors: the local
+    iteration index ``it``, the best-val snapshot (selects into
+    preallocated copies of the parameters, starting from the initial
+    ones), the best val loss and accuracy, ``best_iter``, the patience
+    counter, the stop flag and the count of executed iterations."""
+    dev = labels.device
+    leaves = [t for _, t in named_leaves(params)]
+    track_val = mode in ("val", "early_stop")
+    early = mode == "early_stop"
+
+    def scalar(value, dtype=torch.float32):
+        return torch.tensor(value, dtype=dtype, device=dev)
+
+    it = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_exec = scalar(0, torch.int64)
+    stop = scalar(False, torch.bool)
+    losses = torch.full((train_iters,), float("nan"), device=dev)
+    losses_val = torch.full((train_iters,), float("nan"), device=dev)
+    accs_val = torch.full((train_iters,), float("nan"), device=dev)
+    best = [t.detach().clone() for t in leaves]
+    best_loss = scalar(float("inf"))
+    best_acc = scalar(-float("inf"))
+    best_it = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    pat = scalar(patience, torch.int64)
+
+    def guarded():
+        """What a stopped iteration must leave as it was: the parameters
+        and Adam's state (which exists from the first step on)."""
+        out = list(leaves)
+        for p in leaves:
+            out += [v for v in opt.state[p].values()
+                    if isinstance(v, torch.Tensor)]
+        return out
+
+    def take_best(take, value, best_value):
+        best_value.copy_(torch.where(take, value, best_value))
+        for b, p in zip(best, leaves):
+            b.copy_(torch.where(take, p.detach(), b))
+        best_it.copy_(torch.where(take, start_iter + it, best_it))
+
+    def body():
+        live = torch.logical_not(stop)
+        opt.zero_grad(set_to_none=True)
+        saved = ([t.detach().clone() for t in guarded()] if early
+                 else None)
+        loss = masked_nll(forward(params, True), labels, idx_train)
+        loss.backward()
+        opt.step()
+        loss = loss.detach()
+        with torch.no_grad():
+            if early:
+                for t, s in zip(guarded(), saved):
+                    t.copy_(torch.where(stop, s, t))
+            losses.index_copy_(0, it, loss.reshape(1))
+            n_exec.add_(live.to(torch.int64))
+            if track_val:
+                lp = eval_forward(params)
+                loss_val = masked_nll(lp, labels, idx_val)
+                acc_val = accuracy(lp, labels, idx_val)
+                losses_val.index_copy_(0, it, loss_val.reshape(1))
+                accs_val.index_copy_(0, it, acc_val.reshape(1))
+                if mode == "val":
+                    # a lower val loss, then a higher val accuracy, each
+                    # take the snapshot; the later one wins
+                    take_best(loss_val < best_loss, loss_val, best_loss)
+                    take_best(acc_val > best_acc, acc_val, best_acc)
+                else:
+                    improved = live & (loss_val < best_loss)
+                    take_best(improved, loss_val, best_loss)
+                    pat.copy_(torch.where(improved, patience,
+                                          torch.where(stop, pat, pat - 1)))
+                    # the warm-up guard on the LOCAL index, as the eager
+                    # flavor's ``i > patience``
+                    stop.copy_(stop | ((it[0] > patience) & (pat <= 0)))
+            it.add_(1)
+
+    loop = CapturedLoop(body, dev, generator)
+    marks = Marks(dev)
+    with timers("fit_scan").d:
+        loop.run(train_iters, marks=marks)
+    step_timer = timers("step")
+    timers.reset("step")
+    steps = marks.intervals_ms()
+    step_timer.d.add(steps[WARMUP:] if len(steps) > WARMUP else steps)
+
+    n = int(n_exec)   # executed updates (< train_iters if stopped)
+    if generator is not None:
+        generator.set_state(loop.generator_state_after(n))
+    history = []
+    lists = [t[:n].tolist() for t in (losses, losses_val, accs_val)]
+    for i, (loss, loss_val, acc_val) in enumerate(zip(*lists)):
+        rec = {"iter": start_iter + i, "loss_train": loss}
+        if track_val:
+            rec.update(loss_val=loss_val, acc_val=acc_val)
+        history.append(rec)
+        if verbose and i % 10 == 0:
+            msg = f"Epoch {i:4d}, training loss: {loss:.6f}"
+            if track_val:
+                msg += (f", val loss: {loss_val:.6f}, "
+                        f"val acc: {acc_val:.4f}")
+            print(msg)
+    if verbose and bool(stop):
+        print(f"=== early stopping at iteration {n - 1}, "
+              f"best val loss {float(best_loss):.4f} ===")
+
+    final = snapshot(params)
+    best_iter = int(best_it)
+    if mode == "no_val" or best_iter < 0:
+        best_params, best_iter = final, start_iter + n - 1
+    else:
+        best_params = tree_like(params, best)
+    return TrainResult(params=best_params,
+                       log_probs=eval_forward(best_params), timers=timers,
+                       history=history, best_iter=best_iter,
+                       final_params=final, iters_run=n,
+                       opt_state=opt.state_dict()["state"],
+                       rng_state=(generator.get_state()
+                                  if generator is not None else None))

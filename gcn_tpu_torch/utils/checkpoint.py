@@ -106,6 +106,18 @@ def named_leaves(params, prefix: str = ""):
             yield prefix + str(key), value
 
 
+def tree_like(like, leaves):
+    """A nested dict shaped like ``like`` whose leaves are ``leaves``, in
+    the order of ``named_leaves(like)``."""
+    leaves = iter(leaves)
+
+    def build(tree):
+        return {k: build(v) if isinstance(v, dict) else next(leaves)
+                for k, v in tree.items()}
+
+    return build(like)
+
+
 @dataclasses.dataclass
 class TrainingState:
     """What ``load_training_state`` reads back."""
@@ -202,8 +214,11 @@ def load_training_state(path: str, params_like, *, adam_index: int = 1,
         mu_leaves = dict(named_leaves(mu))
         nu_leaves = dict(named_leaves(nu))
         for i, (name, leaf) in enumerate(named_leaves(params_like)):
+            # on the parameters' device: the port's Adam is capturable on
+            # a CUDA device (``train/optim.py``) and keeps its count there
             adam_state[i] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=leaf.device),
                 "exp_avg": torch.as_tensor(mu_leaves[name], dtype=leaf.dtype,
                                            device=leaf.device),
                 "exp_avg_sq": torch.as_tensor(nu_leaves[name],

@@ -9,7 +9,11 @@ The port of ``gcn_tpu.utils.timers`` with the same surface:
 
 Each timer also keeps its per-call samples, so a median can be read.
 ``Marks`` stamps a loop's iterations on the device's stream without waiting
-for it, for loops that must not stop the host each iteration.
+for it, for loops that must not stop the host each iteration: HGNN's
+epochs in both loop flavors, and a captured fit's replays
+(``train/capture.py``), whose intervals become the samples of the "step"
+timer (``Timer.add``) beside the ``fit_scan`` timer of the whole loop, so
+that step and epoch medians read alike in both flavors.
 """
 
 from __future__ import annotations
@@ -55,6 +59,11 @@ class Timer:
         """Mark the region's result; the device timer waits for the whole
         stream on exit, which covers it."""
         return value
+
+    def add(self, samples) -> None:
+        """Add samples (ms) measured elsewhere: the time between a captured
+        loop's replays (``Marks``)."""
+        self.samples.extend(float(v) for v in samples)
 
     @property
     def count(self) -> int:

@@ -815,3 +815,221 @@ def test_sharded_flavors_on_card_match_cpu(cuda, flavor, launches):
     assert k1_card == launches
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
     torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)
+
+
+# ---- the captured fit (jit_loop=True): replays of one CUDA graph --------
+#
+# Captured against eager on the card, from the same parameters and the
+# same dropout generator. The two flavors run the same kernels in the same
+# order and the same capturable Adam; what can differ is the order of the
+# atomic adds of ``index_add_`` (the hub epilogue of K1's layout and the
+# gathers' backward), which CUDA does not fix from run to run. Hence
+# losses at rtol 1e-5 and log-probs at rtol 1e-5 + atol 1e-5, while the
+# record (history length, best_iter, iters_run) and the generator's state
+# are equal.
+
+
+def _kernel_records(fn, needle):
+    """Run ``fn`` under torch.profiler; the device kernels whose name
+    holds ``needle``, replays of a CUDA graph included."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # margins inside the trace window, whose ends are host times: a
+        # kernel whose converted device time falls past an end is dropped
+        time.sleep(0.1)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and needle in e.name)
+    return out, n
+
+
+def _functional_fit(adj, x, labels, idx_train, idx_val, steps, jit_loop,
+                    device, dropout=0.5, mode="val", patience=500, lr=0.01):
+    from gcn_tpu_torch.models.gcn_core import gcn_forward, init_gcn_params
+    from gcn_tpu_torch.models.layers import auto_order
+    from gcn_tpu_torch.ops.spmm import hoist_spmm
+    from gcn_tpu_torch.train.loop import fit_gcn
+    from gcn_tpu_torch.train.optim import adam_l2
+
+    params = init_gcn_params(torch.Generator().manual_seed(3), x.shape[1],
+                             16, 5, device=device)
+    feats = hoist_spmm(adj, x)
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def forward(p, train):
+        return gcn_forward(p, feats, adj, orders=("xw", auto_order(16, 5)),
+                           dropout_rate=dropout, train=train, generator=gen)
+
+    return fit_gcn(params, lambda ps: adam_l2(ps, lr), forward, labels,
+                   idx_train, idx_val, train_iters=steps, mode=mode,
+                   patience=patience, generator=gen, jit_loop=jit_loop)
+
+
+def _same_fit(got, want):
+    assert len(got.history) == len(want.history)
+    assert got.iters_run == want.iters_run
+    assert got.best_iter == want.best_iter
+    for key in want.history[0]:
+        if key != "iter":
+            np.testing.assert_allclose([h[key] for h in got.history],
+                                       [h[key] for h in want.history],
+                                       rtol=1e-5)
+    torch.testing.assert_close(got.log_probs, want.log_probs, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got.rng_state, want.rng_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "panel"])
+def test_captured_gcn_fit_matches_eager_on_card(cuda, layout):
+    """GCN at dropout 0.5 over K1 (hub-split ELL) or K2 (a panel layout
+    whose heavy windows fork onto K2's side stream inside the graph), 12
+    steps with the best-val snapshot; the profiler counts the captured
+    fit's kernel launches, which equal the eager fit's host count and the
+    final evaluation's."""
+    if layout == "ell":
+        g = _hub_graph()
+        adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
+        needle, counter = "ell_spmm", lambda: es.spmm_ell_launches
+    else:
+        g = _split_graph()
+        # heavy windows beside light ones: the SpMM forks and joins
+        adj = _with_split(panel_adjacency(g, device=cuda), 6000)
+        assert adj.heavy.numel() > 0 and adj.light.numel() > 0
+        needle, counter = "panel_spmm", lambda: ps.spmm_panel_launches
+    n = g.shape[0]
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((n, 24)), dtype=torch.float32,
+                     device=cuda)
+    labels = torch.tensor(rng.integers(0, 5, n), device=cuda)
+    idx_train = torch.arange(0, n // 2, device=cuda)
+    idx_val = torch.arange(n // 2, n, device=cuda)
+    before = counter()
+    eager = _functional_fit(adj, x, labels, idx_train, idx_val, 12, False,
+                            cuda)
+    host_count = counter() - before
+    captured, records = _kernel_records(
+        lambda: _functional_fit(adj, x, labels, idx_train, idx_val, 12,
+                                True, cuda), needle)
+    _same_fit(captured, eager)
+    # the captured fit recomputes the best snapshot's log-probs at the end
+    # (gcn_tpu's scan does too): one SpMM more than the eager fit, which
+    # keeps them from the snapshot's step; K2 is two launches an SpMM
+    # where both kinds of window exist
+    per_call = 2 if layout == "panel" else 1
+    assert records == per_call * (host_count + 1)
+
+
+@pytest.mark.cuda
+def test_captured_early_stop_matches_eager_on_card(cuda):
+    """An early-stopped captured fit replays its stopped iterations, which
+    change nothing: the record, the parameters and the generator's state
+    equal the eager fit's, which stops."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
+    n = g.shape[0]
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.standard_normal((n, 24)), dtype=torch.float32,
+                     device=cuda)
+    labels = torch.tensor(rng.integers(0, 5, n), device=cuda)
+    idx_train = torch.arange(0, 40, device=cuda)
+    idx_val = torch.arange(200, n, device=cuda)
+    kw = dict(mode="early_stop", patience=3, lr=0.05, dropout=0.3)
+    eager = _functional_fit(adj, x, labels, idx_train, idx_val, 60, False,
+                            cuda, **kw)
+    captured = _functional_fit(adj, x, labels, idx_train, idx_val, 60,
+                               True, cuda, **kw)
+    assert eager.iters_run < 60
+    _same_fit(captured, eager)
+    for layer in eager.final_params:
+        for key in eager.final_params[layer]:
+            torch.testing.assert_close(captured.final_params[layer][key],
+                                       eager.final_params[layer][key],
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_captured_hgnn_fit_matches_eager_on_card(cuda):
+    """HGNN over both forms of G at dropout 0.5, 12 epochs across the
+    milestone at 5 (the rate a device tensor the graph reads), with the
+    best-val snapshot: captured against eager."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models import HGNN
+
+    g, factors = _hypergraph()
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((g.shape[0], 64)).astype(np.float32)
+    labels = rng.integers(0, 5, g.shape[0])
+    for G in (g, factors):
+        runs, p0 = {}, None
+        for jit_loop in (False, True):
+            m = HGNN(64, 5, n_hid=128, adj_kind="ell", milestones=(5,),
+                     device=cuda)
+            p0 = p0 if p0 is not None else params_to_numpy(m.init_params())
+            m.params = params_from_numpy(p0, cuda)
+            m.fit(x, G, labels, np.arange(400), idx_val=np.arange(400, 600),
+                  num_epochs=12, jit_loop=jit_loop)
+            runs[jit_loop] = m
+        eager, captured = runs[False], runs[True]
+        assert "fit_scan" in captured.timers.names()
+        for key in ("loss_train", "acc_val"):
+            np.testing.assert_allclose([h[key] for h in captured.history],
+                                       [h[key] for h in eager.history],
+                                       rtol=1e-5)
+        assert captured.best_acc == pytest.approx(eager.best_acc, abs=1e-6)
+        torch.testing.assert_close(captured.output, eager.output, rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(captured._rng_state, eager._rng_state)
+        assert captured._schedule_at == eager._schedule_at == 12
+        assert len(captured.epoch_ms) == 12
+
+
+@pytest.mark.cuda
+def test_capture_that_cannot_proceed_raises(cuda):
+    """A forward that reads a device value on the host cannot be
+    captured, and an optimizer that is not capturable refuses the
+    capture: both raise, and nothing falls back to the eager loop."""
+    from gcn_tpu_torch.models.gcn_core import init_gcn_params
+    from gcn_tpu_torch.train.loop import fit_gcn
+    from gcn_tpu_torch.train.optim import adam_l2
+
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
+    n = g.shape[0]
+    x = torch.randn(n, 24, device=cuda)
+    labels = torch.randint(0, 5, (n,), device=cuda)
+    idx = torch.arange(n, device=cuda)
+    params = init_gcn_params(torch.Generator().manual_seed(0), 24, 16, 5,
+                             device=cuda)
+
+    def forward(p, train):
+        from gcn_tpu_torch.models.gcn_core import gcn_forward
+
+        out = gcn_forward(p, x, adj, dropout_rate=0.0, train=train)
+        if train and float(out.sum()) != float(out.sum()):
+            raise AssertionError("unreachable: a NaN output")
+        return out
+
+    with pytest.raises(RuntimeError):
+        fit_gcn(params, adam_l2, forward, labels, idx, train_iters=5)
+    torch.cuda.synchronize()
+
+    def plain_forward(p, train):
+        from gcn_tpu_torch.models.gcn_core import gcn_forward
+
+        return gcn_forward(p, x, adj, dropout_rate=0.0, train=train)
+
+    with pytest.raises(RuntimeError):
+        fit_gcn(params, lambda ps: torch.optim.Adam(ps, lr=0.01),
+                plain_forward, labels, idx, train_iters=5)
+    torch.cuda.synchronize()
+    res = fit_gcn(params, adam_l2, plain_forward, labels, idx,
+                  train_iters=5)
+    assert res.iters_run == 5 and torch.isfinite(res.log_probs).all()

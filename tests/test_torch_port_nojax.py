@@ -1,9 +1,9 @@
-"""gcn_tpu_torch imports, trains GCN and HGNN (both forms of G), runs the
-panel and frequency-split SpMMs, saves and resumes a training state, takes
-sharded training steps over two row bands and every exchange and layout
-flavor over four, imports the host modules
-(loaders, CSV dumps, row analysis, artifacts, profiling), reorders by
-gorder and profiles a fitted model's ops, with jax and gcn_tpu blocked."""
+"""gcn_tpu_torch imports, trains GCN (in both loop flavors) and HGNN (both
+forms of G), runs the panel and frequency-split SpMMs, saves and resumes a
+training state, takes sharded training steps over two row bands and every
+exchange and layout flavor over four, imports the host modules (loaders,
+CSV dumps, row analysis, artifacts, profiling), reorders by gorder and
+profiles a fitted model's ops, with jax and gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -125,6 +125,13 @@ m3.fit(data.features, data.adj, data.labels, data.idx_train, train_iters=2)
 rows = m3.profile_ops(n_iters=2, warmup=1, verbose=False).names()
 assert rows == ["l1_xw", "l1_bi", "l2_xw", "l2_af", "l2_bi", "fwd",
                 "bwd"], rows
+from gcn_tpu_torch.train.capture import CapturedLoop
+m4 = GCN(data.num_features, 8, data.num_classes, variant="v6", device="cpu")
+m4.fit(data.features, data.adj, data.labels, data.idx_train, train_iters=3,
+       jit_loop=False)
+assert [h["loss_train"] for h in m4.history] == [h["loss_train"]
+                                                 for h in m.history]
+assert "fit_scan" in m.timers.names()
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)
