@@ -10,7 +10,8 @@ functional GCN training over the panel layout (``panel_adjacency``,
 ``hoist_spmm``, ``gcn_forward``, ``fit_gcn``; kernel K2), a resumed GCN
 run, GCN over the frequency-split tables, row-band sharded GCN training
 through ``gcn_tpu_torch.parallel.make_sharded_gcn_train_step`` (four
-shards in this process, K1 on every shard's parts), and HGNN training
+shards in this process, K1 on every shard's parts; then 4 bands x 2 model
+slots, K1 on each slot's hidden shard), and HGNN training
 through ``gcn_tpu_torch.models.HGNN`` at ModelNet40's shape on both forms
 of G (K1) — and holds every kernel against its plain PyTorch version.
 Phases (each failure exits non-zero):
@@ -119,6 +120,19 @@ Phases (each failure exits non-zero):
      dropout 0.5 with K1's launches as reckoned, the median step and a
      profile of the step; and K1's time in each new use beside
      ``torch.sparse.mm`` and the bound;
+     [model axis], the same 4 bands x 2 model slots in this process
+     (``create_mesh_2d``, ``model_axis="model"``; ``create_mesh_hier_model``
+     2 x 2 x 2 for ``halo_hier``): K1 at k = 16 (the hidden shard) on slot
+     0's interior and halo parts, forward and transpose, against its
+     float64 plain version; 5 steps (dropout 0) of halo with each overlap,
+     halo_padded, halo_hier and all_gather + segsum against the 1-D
+     4-shard step's losses (rtol 1e-4), log-probs (atol 1e-4 + rtol 1e-5)
+     and parameters (rtol 1e-5, atol 1e-4) and the unsharded losses, with
+     K1's launches equal to the count reckoned from the layout
+     (``model_launches``); 20 steps of the default flavor at dropout 0.5
+     with K1's launches as reckoned, the median step and a profile beside
+     the 1-D step's; and K1's time in each use beside ``torch.sparse.mm``
+     and the bound;
  13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
@@ -157,7 +171,7 @@ Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
 kernel records, and ``captured_host_calls``), and K1 at HGNN's, the
 frequency split's and the sharded parts' shapes (every flavor's new
-layouts too), each
+layouts too, and the model axis's hidden shard), each
 with the launches at its width of the run that uses it, and K1 after each
 reorder method (``use`` names it; ``launches``: the [orders] phase's own
 calls, or the train_gcn fit's for gorder); every bound counts 8 B a stored
@@ -366,7 +380,8 @@ def profile_steps(model, idx_train, steps, captured=False):
 def profile_device(label, step, steps):
     """Run ``step`` 3 times, then ``steps`` times under torch.profiler;
     print the wall and device-busy ms a step (the profiler's own host cost
-    included), K1's device ms a step and the top kernels by device time."""
+    included), K1's device ms a step and the top kernels by device time;
+    return the three ms a step (``wall``, ``busy``, ``k1``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -401,6 +416,8 @@ def profile_device(label, step, steps):
         print("  the profiler recorded no device time: not measured")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms / steps:8.4f} ms/step  {name[:90]}")
+    return dict(wall=wall_ms / steps, busy=busy_ms / steps,
+                k1=k1_ms / steps)
 
 
 def kernel_records(fn, needle):
@@ -1118,6 +1135,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
           "band-sorted graph", flush=True)
     halo_l, _ = fit(step, state, 5)
     halo_lp = evaluate(eval_fn, state)
+    halo_params = params_to_numpy(state[0])
     uadj = ell_adjacency(g, k_pad=32, symmetric=True, device=dev)
     feats = torch.as_tensor(x, device=dev)
     res = fit_gcn(params_from_numpy(p0, dev), adam_l2,
@@ -1221,8 +1239,9 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     acc = (lp[idx_test].argmax(1).cpu().numpy()
            == labels[idx_test.cpu().numpy()]).mean()
     expected = dist_launches(ns, (nhid, ncls), DIST_CHUNK, steps)
+    dist_step_ms = statistics.median(step_ms[-10:])
     print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; fit "
-          f"{fit_s:.2f}s; median step {statistics.median(step_ms[-10:]):.3f}"
+          f"{fit_s:.2f}s; median step {dist_step_ms:.3f}"
           f" ms (CUDA events, last 10 steps); test accuracy {acc:.4f}",
           flush=True)
     print(f"  K1 launches: {launches[0]} by width {launches[1]} (expected "
@@ -1234,7 +1253,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     if tuple(lp.shape) != (n, ncls) or not torch.isfinite(lp).all():
         fail(f"sharded output shape {tuple(lp.shape)} or values not finite")
     it = iter(range(steps, 10 ** 9))
-    profile_device("[dist profile]", lambda: step(
+    dist_profile = profile_device("[dist profile]", lambda: step(
         state[0], state[1], (SEED + 1, next(it)), *state[2]), 5)
 
     print("[dist resume] 10 + save_training_state + 10 steps against the "
@@ -1263,9 +1282,14 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     run = dict(mesh=mesh, sg=sg, g=g, start=start, fit=fit,
                evaluate=evaluate, unsharded=unsharded,
                unsharded_lp=unsharded_lp, interior=parts["interior"][0],
-               labels=labels, idx_test=idx_test, n=n, nhid=nhid, ncls=ncls)
+               labels=labels, idx_test=idx_test, n=n, nhid=nhid, ncls=ncls,
+               nfeat=p0["gc1"]["w"].shape[0],
+               dist_losses=halo_l, dist_lp=halo_lp, dist_params=halo_params,
+               dist_step_ms=dist_step_ms, dist_profile=dist_profile,
+               dist_launches=launches, steps=steps)
     del state, first, second, parts, xs_k
-    return rows + dist_flavor_phases(dev, run)
+    rows += dist_flavor_phases(dev, run)
+    return rows + model_axis_phase(dev, run)
 
 
 def sharded_k1_row(a, t, xk, label, launches, path, err):
@@ -1482,6 +1506,166 @@ def dist_flavor_phases(dev, run):
                 launches, path, errs[name, t, k]))
         del state, parts, extra, xs_k
         torch.cuda.empty_cache()
+    return rows
+
+
+# the model axis: 4 bands x 2 model slots in this process; each flavor's
+# (label, options, a host x chip x model mesh, K1 parts a layer and slot)
+MODEL_AXIS = (4, 2)
+MODEL_FLAVORS = (
+    ("halo, overlap=True", dict(), None, 2),
+    ("halo, overlap='split'", dict(overlap="split"), None, 2),
+    ("halo, overlap=False", dict(overlap=False), None, 1),
+    ("halo_padded", dict(exchange="halo_padded"), None, 2),
+    ("halo_hier 2x2x2", dict(exchange="halo_hier"), (2, 2, 2), 2),
+    ("all_gather + segsum", dict(exchange="all_gather"), None, 0))
+# the default flavor's K1 uses on a slot, all at k = nhid / m: both layers'
+# aggregation of the hidden shard (forward) and its dX
+MODEL_USES = (("interior", False, "layers 1 and 2 forward"),
+              ("interior", True, "layers 1 and 2 dX"),
+              ("halo", False, "layers 1 and 2 forward"),
+              ("halo", True, "layers 1 and 2 dX"))
+
+
+def model_launches(n_slots, parts, steps):
+    """K1 launches of a model-axis fit reckoned from the layout: per slot
+    and layer ``parts`` forward launches (the unfused forms: no k-chunks)
+    and as many dX; then one eval forward a layer."""
+    return n_slots * parts * (4 * steps + 2)
+
+
+def model_axis_phase(dev, run):
+    """[model axis]: tensor parallelism over the hidden width on
+    synth-arxiv's 4 bands (run's sharded graph) x 2 model slots in this
+    process: each flavor's 5 steps (dropout 0) against the 1-D 4-shard
+    step's losses, log-probs and parameters and the unsharded losses, with
+    K1's launches as reckoned; K1 at k = nhid / 2 on slot 0's parts against
+    its float64 plain version; 20 timed steps of the default flavor at
+    dropout 0.5 with a profile, beside the 1-D step's; the ``kernels`` rows
+    of K1's uses on the hidden shard."""
+    import numpy as np
+    import torch
+
+    from gcn_tpu_torch.convert import params_to_numpy
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.parallel import (create_mesh_2d,
+                                        create_mesh_hier_model,
+                                        gather_model_params,
+                                        make_sharded_gcn_train_step)
+
+    sg, n = run["sg"], run["n"]
+    nd, nm = MODEL_AXIS
+    k = run["nhid"] // nm
+    n_slots = nd * nm
+    mesh2 = create_mesh_2d(nd, nm, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    print(f"[model axis] synth-arxiv, {nd} bands x {nm} model slots in one "
+          f"process on {dev}: x {n} x {run['nfeat']} column-sharded "
+          f"({run['nfeat'] // nm} a slot), hidden {run['nhid']} "
+          f"reduce-scattered "
+          f"into shards of {k}, K1 at k={k} on every slot; 1-D 4-shard "
+          f"losses {run['dist_losses']}", flush=True)
+    parts = xs_k = errs = None
+    for label, opts, hier, n_parts in MODEL_FLAVORS:
+        mesh = create_mesh_hier_model(*hier, dev) if hier else mesh2
+        t0 = time.time()
+        step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, model_axis="model", k_pad=32, **opts)
+        torch.cuda.synchronize()
+        t_make = time.time() - t0
+        state = run["start"](shard_fn)
+        if parts is None:
+            # the default flavor's own parts: one entry an owned slot
+            parts = dict(zip(("interior", "halo"), state[2][0][0]))
+            print(f"  K1 vs plain, slot 0 (band 0, model 0), k={k}, float64 "
+                  f"plain version, f32 tolerance", flush=True)
+            xs_k, errs = {}, {}
+            for name, t, _ in MODEL_USES:
+                cols, vals, win, win_off, n_out, n_in = k1_arrays(
+                    parts[name][0], t)
+                xk = xs_k[name, t] = torch.randn(n_in, k, device=dev,
+                                                 generator=gen)
+                errs[name, t] = compare(
+                    f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
+                    es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+                    es._ell_spmm_plain(xk.double(), cols, vals.double(),
+                                       win, win_off, n_out))
+            torch.cuda.synchronize()
+        reset_launches()
+        losses, _ = run["fit"](step, state, 5)
+        lp = run["evaluate"](eval_fn, state)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = model_launches(n_slots, n_parts, 5)
+        print(f"  {label}: make_sharded_gcn_train_step {t_make:.2f}s; 5 "
+              f"steps, dropout 0: losses {losses}; K1 launches "
+              f"{launches[0]} by width {launches[1]} (expected {want})",
+              flush=True)
+        if launches[0] != want or set(launches[1]) - {k}:
+            fail(f"model axis {label}: K1 launches {launches}, expected "
+                 f"{want} at k={k}")
+        check_close_losses(f"{label} vs the 1-D step", losses,
+                           run["dist_losses"], 1e-4)
+        check_close_losses(f"{label} vs unsharded", losses,
+                           run["unsharded"], 1e-4)
+        compare(f"{label} vs the 1-D step's eval log-probs", lp,
+                run["dist_lp"], rtol=1e-5, atol=1e-4)
+        got = params_to_numpy(gather_model_params(state[0], mesh))
+        for layer, leaves in run["dist_params"].items():
+            for name, want_p in leaves.items():
+                compare(f"{label} vs the 1-D step's {layer}.{name}",
+                        torch.as_tensor(got[layer][name]),
+                        torch.as_tensor(want_p), rtol=1e-5, atol=1e-4)
+        del state
+        torch.cuda.empty_cache()
+
+    steps = run["steps"]
+    print(f"[model axis main path] the default flavor, {steps} steps, "
+          f"dropout 0.5, seed {SEED}", flush=True)
+    step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+        mesh2, sg, dropout=0.5, model_axis="model", k_pad=32)
+    state = run["start"](shard_fn)
+    reset_launches()
+    losses, step_ms = run["fit"](step, state, steps, events=True)
+    lp = run["evaluate"](eval_fn, state)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    idx_test = run["idx_test"]
+    acc = (lp[idx_test].argmax(1).cpu().numpy()
+           == run["labels"][idx_test.cpu().numpy()]).mean()
+    want = model_launches(n_slots, 2, steps)
+    median = statistics.median(step_ms[-10:])
+    print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; median "
+          f"step {median:.3f} ms (CUDA events, last 10 steps) against the "
+          f"1-D step's {run['dist_step_ms']:.3f}; test accuracy {acc:.4f}; "
+          f"K1 launches {launches[0]} by width {launches[1]} (expected "
+          f"{want}; the 1-D run's {run['dist_launches'][0]} by width "
+          f"{run['dist_launches'][1]})", flush=True)
+    if launches[0] != want:
+        fail(f"model axis run: {launches[0]} K1 launches, expected {want}")
+    if not losses[-1] < losses[0]:
+        fail("model axis run: loss did not fall")
+    if (tuple(lp.shape) != (n, run["ncls"])
+            or not torch.isfinite(lp).all()):
+        fail(f"model axis output shape {tuple(lp.shape)} or values not "
+             f"finite")
+    it = iter(range(steps, 10 ** 9))
+    prof = profile_device("[model axis profile]", lambda: step(
+        state[0], state[1], (SEED + 1, next(it)), *state[2]), 5)
+    one = run["dist_profile"]
+    print(f"  model axis against the 1-D step under torch.profiler: wall "
+          f"{prof['wall']:.3f} vs {one['wall']:.3f} ms/step, device busy "
+          f"{prof['busy']:.3f} vs {one['busy']:.3f}, K1 {prof['k1']:.4f} vs "
+          f"{one['k1']:.4f} device ms/step", flush=True)
+    path = (f"sharded GCN with a model axis, {nd} bands x {nm} model slots, "
+            f"{steps} steps")
+    rows = [sharded_k1_row(parts[name][0], t, xs_k[name, t],
+                           f"model axis {name} part, slot 0 (band 0, model "
+                           f"0), {'transpose arrays' if t else 'forward'} "
+                           f"k={k} ({use})", launches, path, errs[name, t])
+            for name, t, use in MODEL_USES]
+    del state, parts, xs_k
+    torch.cuda.empty_cache()
     return rows
 
 

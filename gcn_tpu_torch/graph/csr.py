@@ -84,6 +84,10 @@ class CSRGraph:
         return coo_to_csr(cols, rows, vals, (self.shape[1], self.shape[0]),
                           sum_duplicates=False)
 
+    def copy(self) -> "CSRGraph":
+        return CSRGraph(self.indptr.copy(), self.indices.copy(),
+                        self.data.copy(), self.shape)
+
     def symmetrize(self, *, binarize: bool = True) -> "CSRGraph":
         """A := A + A^T (optionally binarized), diagonal removed."""
         assert self.shape[0] == self.shape[1], \
@@ -124,6 +128,19 @@ class CSRGraph:
         indptr = self.indptr.astype(np.int64) + add
         return CSRGraph(indptr, indices, data, self.shape)
 
+    def to_dag(self) -> "CSRGraph":
+        """Orient every edge low id -> high id. Anti-parallel pairs land on
+        one (min, max) entry and add; self loops stay."""
+        r, c, v = self.to_coo()
+        return coo_to_csr(np.minimum(r, c), np.maximum(r, c), v,
+                          self.shape)
+
+    def eliminate_zeros(self) -> "CSRGraph":
+        r, c, v = self.to_coo()
+        keep = v != 0
+        return coo_to_csr(r[keep], c[keep], v[keep], self.shape,
+                          sum_duplicates=False)
+
     def permute(self, perm_new_to_old: np.ndarray) -> "CSRGraph":
         """Symmetric permutation ``out[i, j] = self[p[i], p[j]]`` with
         ``p[new] = old``; column ids within each row come out sorted."""
@@ -140,6 +157,35 @@ class CSRGraph:
         r, c, v = self.to_coo()
         return coo_to_csr(inv[r], inv[c], v, self.shape,
                           sum_duplicates=False)
+
+    def permute_rows(self, perm_new_to_old: np.ndarray) -> "CSRGraph":
+        """Row-only permutation ``out[i, :] = self[p[i], :]``; each row keeps
+        its column order."""
+        p = np.asarray(perm_new_to_old, dtype=np.int64)
+        counts = np.diff(self.indptr)[p]
+        indptr = np.zeros(self.shape[0] + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        # each new row's entries are the old row's range: one gather
+        src = (np.repeat(self.indptr[p].astype(np.int64) - indptr[:-1],
+                         counts) + np.arange(indptr[-1], dtype=np.int64))
+        return CSRGraph(indptr, self.indices[src], self.data[src],
+                        self.shape)
+
+    def validate(self) -> None:
+        """Raise AssertionError on the first broken CSR invariant, as
+        gcn_tpu's ``validate``."""
+        m, n = self.shape
+        if self.indptr.shape != (m + 1,):
+            raise AssertionError
+        if not (self.indptr[0] == 0 and self.indptr[-1] == self.nnz):
+            raise AssertionError
+        if not np.all(np.diff(self.indptr) >= 0):
+            raise AssertionError("indptr must be nondecreasing")
+        if self.nnz and not (self.indices.min() >= 0
+                             and self.indices.max() < n):
+            raise AssertionError
+        if self.data.shape != self.indices.shape:
+            raise AssertionError
 
     def is_symmetric(self) -> bool:
         t = self.transpose()

@@ -26,10 +26,15 @@ concat(halo, own band):
 
 Every exchange moves rows along a route: a list of (source shard,
 destination shard, source row, destination row, rows) moves, every shard's,
-in one global order. A move between two shards of one process is a copy on
-the device; between processes the route's moves go as point-to-point
-messages (``batch_isend_irecv``) or, for the padded plan, as one
-``all_to_all_single``; NCCL on the card, gloo on the CPU. Every rank posts
+in one global order. On a mesh with a model axis each move runs once a
+model slot, between the slots of that model index (``_slot_moves``): the
+exchange of one slot's hidden shard joins the bands of that slot, and the
+hierarchical plan's host and chip levels apply within it; the lists the
+exchange takes are then over the owned slots. A move between two slots of
+one process is a copy on the device; between processes the route's moves
+go as point-to-point messages (``batch_isend_irecv``) or, for the padded
+plan, as one ``all_to_all_single`` on the data group; NCCL on the card,
+gloo on the CPU. Every rank posts
 its messages in the route's global order, so each pair of ranks posts them
 in one order (NCCL matches point-to-point messages between two ranks by
 their order, gloo by the tag, a move's index). The messages travel as
@@ -809,15 +814,27 @@ def _shift_moves(sizes, dest, n_shards):
     return tuple(moves)
 
 
+def _slot_moves(mesh, moves, tag0):
+    """The band-level ``moves`` on every model slot: move i between bands a
+    and b runs between slots a * m + j and b * m + j for each model index j
+    (the exchange of one model slot joins the bands of that slot), tagged
+    (tag0 + i) * m + j. On a 1-D mesh (m = 1) the moves themselves."""
+    m = mesh.n_model
+    return [((a * m + j, b * m + j, s0, d0, h), (tag0 + i) * m + j)
+            for i, (a, b, s0, d0, h) in enumerate(moves) for j in range(m)]
+
+
 def _transfer(mesh, moves, src, dst, all_to_all, tag0, add):
-    """Start ``moves`` from the owned shards' ``src`` buffers into their
+    """Start ``moves`` from the owned slots' ``src`` buffers into their
     ``dst`` buffers (lists in owned order): copies now for moves within this
     process, the rest in flight. Returns ``finish()``, which waits for them.
     ``add``: each piece adds into its rows (in their dtype) instead of
-    overwriting them."""
+    overwriting them. Every move stays within one data group, so the
+    all-to-all runs on this rank's."""
     rank = mesh.rank
     li = mesh.local_index
     owner = mesh.owner
+    group_pos = {r: i for i, r in enumerate(mesh.data_ranks)}
     k = src[0].shape[1]
 
     def put(view, piece):
@@ -827,33 +844,33 @@ def _transfer(mesh, moves, src, dst, all_to_all, tag0, add):
             view.copy_(piece)
 
     ops, after = [], []
-    sends = [[] for _ in range(mesh.world_size)]
-    recvs = [[] for _ in range(mesh.world_size)]
-    for i, (a, b, s0, d0, h) in enumerate(moves):
+    sends = [[] for _ in group_pos]
+    recvs = [[] for _ in group_pos]
+    for (a, b, s0, d0, h), tag in _slot_moves(mesh, moves, tag0):
         mine_a, mine_b = owner(a) == rank, owner(b) == rank
         if mine_a and mine_b:
             put(dst[li(b)][d0:d0 + h], src[li(a)][s0:s0 + h])
         elif mine_a:
             piece = src[li(a)][s0:s0 + h]
             if all_to_all:
-                sends[owner(b)].append(piece)
+                sends[group_pos[owner(b)]].append(piece)
             else:
                 ops.append(dist.P2POp(dist.isend, piece.view(torch.uint8),
-                                      owner(b), tag=tag0 + i))
+                                      owner(b), tag=tag))
         elif mine_b:
             view = dst[li(b)][d0:d0 + h]
             if all_to_all:
-                recvs[owner(a)].append(view)
+                recvs[group_pos[owner(a)]].append(view)
                 continue
             buf = view
             if add:
                 buf = src[0].new_empty((h, k))
                 after.append((view, buf))
             ops.append(dist.P2POp(dist.irecv, buf.view(torch.uint8),
-                                  owner(a), tag=tag0 + i))
+                                  owner(a), tag=tag))
     works = dist.batch_isend_irecv(ops) if ops else []
     keep = [ops]               # the message buffers live until the wait
-    if all_to_all and mesh.distributed:
+    if all_to_all and mesh.data_parallel:
         out_rows = [sum(v.shape[0] for v in views) for views in recvs]
         inp = torch.cat([piece for pieces in sends for piece in pieces]
                         or [src[0][:0]])
@@ -862,7 +879,8 @@ def _transfer(mesh, moves, src, dst, all_to_all, tag0, add):
             out.view(torch.uint8), inp.view(torch.uint8),
             output_split_sizes=out_rows,
             input_split_sizes=[sum(p.shape[0] for p in pieces)
-                               for pieces in sends], async_op=True))
+                               for pieces in sends],
+            group=mesh.data_group, async_op=True))
         keep.append(inp)
         o = 0
         for views in recvs:

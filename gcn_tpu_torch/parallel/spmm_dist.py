@@ -1,11 +1,12 @@
 """Distributed SpMM baseline: gather every band, then a segment sum.
 
 The port of ``gcn_tpu.parallel.spmm_dist``. Each process owns the row bands
-of its shards and their activations; a layer's aggregation needs source
-rows from every band, so the baseline gathers them all:
+of its slots and their activations; a layer's aggregation needs source
+rows from every band, so the baseline gathers them all within the data
+group (the ranks of one run of model indices):
 
-    x_full = all_gather(owned bands)              # every process, n rows
-    out_band = local_spmm(shard, x_full)          # index_add per shard
+    x_full = all_gather(owned bands)              # every band, n rows
+    out_band = local_spmm(shard, x_full)          # index_add per slot
 
 XLA's ``segment_sum`` is no Pallas kernel, so its counterpart here is plain
 torch (``index_add``) on the card as on the CPU. The halo exchange
@@ -26,36 +27,48 @@ def local_spmm(rows_local, cols, vals, x_full, rows_per_shard):
 
 
 class _AllGather(torch.autograd.Function):
-    """Every process's owned bands, in shard order. Backward: the sum over
-    processes of the cotangent, then this process's rows: a reduce-scatter
-    on NCCL; gloo has none on the CPU, so there it is an all_reduce and a
-    slice."""
+    """Every band of this rank's data group, in band order. Backward: the
+    sum over the group of the cotangent, then this process's rows: a
+    reduce-scatter on NCCL; gloo has none on the CPU, so there it is an
+    all_reduce and a slice."""
 
     @staticmethod
     def forward(ctx, mesh, local):
         ctx.mesh = mesh
-        parts = [torch.empty_like(local) for _ in range(mesh.world_size)]
-        dist.all_gather(parts, local.contiguous())
+        parts = [torch.empty_like(local) for _ in mesh.data_ranks]
+        dist.all_gather(parts, local.contiguous(), group=mesh.data_group)
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         mesh = ctx.mesh
         grad = grad.contiguous()
-        rows = grad.shape[0] // mesh.world_size
+        rows = grad.shape[0] // len(mesh.data_ranks)
         if dist.get_backend() == "nccl":
             out = grad.new_empty((rows, grad.shape[1]))
-            dist.reduce_scatter_tensor(out, grad)
+            dist.reduce_scatter_tensor(out, grad, group=mesh.data_group)
             return None, out
         total = grad.clone()
-        dist.all_reduce(total)
-        return None, total[mesh.rank * rows:(mesh.rank + 1) * rows]
+        dist.all_reduce(total, group=mesh.data_group)
+        pos = mesh.data_ranks.index(mesh.rank)
+        return None, total[pos * rows:(pos + 1) * rows]
 
 
 def dist_spmm_gathered(shard_arrays, x_bands, rows_per_shard, mesh):
-    """SpMM of the owned bands: ``shard_arrays`` are the owned shards'
-    (rows_local, cols, vals), ``x_bands`` their activation bands."""
-    local = torch.cat(x_bands)
-    x_full = _AllGather.apply(mesh, local) if mesh.distributed else local
-    return [local_spmm(rows_local, cols, vals, x_full, rows_per_shard)
-            for rows_local, cols, vals in shard_arrays]
+    """SpMM of the owned slots: ``shard_arrays`` are the owned slots'
+    (rows_local, cols, vals) (a slot's are its band's), ``x_bands`` their
+    activation bands. With a model axis each model index gathers its own
+    columns: the owned slots' bands go side by side, one all_gather."""
+    js = len(mesh.model_slots)
+    # (band rows, owned model indices x width): each band's slots side by
+    # side, the bands stacked in order
+    local = torch.cat([torch.cat(x_bands[i:i + js], dim=1)
+                       for i in range(0, len(x_bands), js)])
+    x_full = _AllGather.apply(mesh, local) if mesh.data_parallel else local
+    k = x_bands[0].shape[1]
+    outs = []
+    for i, (rows_local, cols, vals) in enumerate(shard_arrays):
+        j = i % js
+        x_j = x_full if js == 1 else x_full[:, j * k:(j + 1) * k]
+        outs.append(local_spmm(rows_local, cols, vals, x_j, rows_per_shard))
+    return outs

@@ -7,7 +7,9 @@ holds one edge of the window's row i. The tiler below is the same
 vectorized numpy code, so the arrays equal ``gcn_tpu``'s
 (``tests/test_torch_port_data.py`` checks it): hub-row splitting
 (``_split_hub_rows``), the pass ladder (``_ladder_passes``,
-``_quantize_passes``), the span and chunk plans.
+``_quantize_passes``), the span and chunk plans. Where no ladder applies,
+the C++ tiler (``tile/native.py``, gcn_tpu's ``tiler.cpp``) lays out the
+same arrays when it builds, as in gcn_tpu (``tile_route``).
 
 On the H100 one hand-written kernel (``ops/ell_spmm.py``, K1) computes the
 whole product whatever branch the TPU path would take, so ``spans`` and
@@ -46,7 +48,8 @@ class EllAdj:
     visited; ``win_off`` int32 (num_windows + 1,) the first block of each
     window. ``t_*`` mirror them for A^T (backward dX), aliased when
     symmetric. ``virt_map`` (int32, real row of each virtual hub row) is
-    None when no hub row was split.
+    None when no hub row was split. ``tiler`` / ``t_tiler``: the host route
+    that laid out each direction (``tile_route``).
     """
 
     cols: torch.Tensor
@@ -76,6 +79,8 @@ class EllAdj:
     n_hub: int = 0
     t_n_virt: int = 0
     t_n_hub: int = 0
+    tiler: str = "numpy"
+    t_tiler: str = "numpy"
 
     @property
     def p(self) -> int:
@@ -368,13 +373,38 @@ def _ladder_passes(indptr, n, r, p):
     return mono
 
 
-def _tile(indptr, indices, data, n, r, p):
-    return _ell_arrays(indptr, indices, data, n, r, p,
-                       forced_passes=_ladder_passes(indptr, n, r, p))
+def tile_route(indptr, n, r, p, prefer_native=True):
+    """Which tiler lays out these rows, in gcn_tpu's order: ``"ladder"``
+    (the numpy layout at the pass ladder, whenever one applies),
+    ``"native"`` (the C++ tiler, when ``prefer_native`` and it builds) or
+    ``"numpy"``. Returns ``(route, ladder passes or None)``."""
+    ladder = _ladder_passes(indptr, n, r, p)
+    if ladder is not None:
+        return "ladder", ladder
+    if prefer_native:
+        from gcn_tpu_torch.tile import native
+
+        if native.available():
+            return "native", None
+    return "numpy", None
+
+
+def _tile(indptr, indices, data, n, r, p, prefer_native=True):
+    """``(cols, vals, win, pass_off, route)`` by ``tile_route``'s route."""
+    route, ladder = tile_route(indptr, n, r, p, prefer_native)
+    if route == "native":
+        from gcn_tpu_torch.tile import native
+
+        cols, vals, win = native.ell_arrays(indptr, indices, data, n, r, p)
+        nw = max(1, -(-n // r))
+        off = np.searchsorted(win, np.arange(nw + 1)).astype(np.int64)
+        return cols, vals, win, off, route
+    return (*_ell_arrays(indptr, indices, data, n, r, p,
+                         forced_passes=ladder), route)
 
 
 def _direction(g: CSRGraph, cap: int, hub_split: bool, r: int, p: int,
-               chunk_slots: int, span_pass_limit: int):
+               chunk_slots: int, span_pass_limit: int, prefer_native: bool):
     """Tile one direction: numpy arrays + metadata."""
     n = g.shape[0]
     split = _split_hub_rows(g.indptr, cap) if hub_split else None
@@ -382,10 +412,10 @@ def _direction(g: CSRGraph, cap: int, hub_split: bool, r: int, p: int,
         indptr, virt_map, n_hub, n_virt = split
     else:
         indptr, virt_map, n_hub, n_virt = g.indptr, None, 0, 0
-    cols, vals, win, off = _tile(indptr, g.indices, g.data,
-                                 max(n_virt, n) if split is not None else n,
-                                 r, p)
-    return dict(cols=cols, vals=vals, win=win,
+    cols, vals, win, off, route = _tile(
+        indptr, g.indices, g.data,
+        max(n_virt, n) if split is not None else n, r, p, prefer_native)
+    return dict(cols=cols, vals=vals, win=win, tiler=route,
                 win_off=_win_offsets(win, len(off) - 1),
                 chunks=_chunk_plan(off, p, r, chunk_slots),
                 spans=_guard_spans(_span_plan(off), span_pass_limit),
@@ -398,6 +428,7 @@ def ell_adjacency(
     r: int = DEFAULT_R,
     k_pad: int = DEFAULT_K_PAD,
     symmetric: Optional[bool] = None,
+    prefer_native: bool = True,
     chunk_slots: int = DEFAULT_CHUNK_SLOTS,
     products_bf16: bool = False,
     table_bf16: bool = False,
@@ -411,6 +442,10 @@ def ell_adjacency(
     Same arguments and defaults as ``gcn_tpu.tile.ell.ell_adjacency``
     (including the GCN_TPU_SPAN_LIMIT / GCN_TPU_HUB_SPLIT environment
     overrides, so that both packages lay out the same arrays).
+    ``prefer_native`` tiles with the C++ tiler (``tile/native.py``) where
+    no pass ladder applies and it builds; its arrays equal numpy's.
+    ``tiler`` / ``t_tiler`` of the result say which route each direction
+    took (``tile_route``).
     """
     assert r % 8 == 0, "row window must be a multiple of 8"
     assert k_pad in (8, 16, 32, 64, 128), "k_pad must divide 128"
@@ -438,9 +473,11 @@ def ell_adjacency(
             "source CSR stores explicit zero-valued entries; their "
             "edge-weight gradients through spmm_ell are zero (use the coo "
             "path to train adjacency weights through 0.0)")
-    fwd = _direction(g, cap, hub_split, r, p, chunk_slots, span_pass_limit)
+    fwd = _direction(g, cap, hub_split, r, p, chunk_slots, span_pass_limit,
+                     prefer_native)
     bwd = fwd if symmetric else _direction(g.transpose(), cap, hub_split, r,
-                                           p, chunk_slots, span_pass_limit)
+                                           p, chunk_slots, span_pass_limit,
+                                           prefer_native)
 
     def dev(a):
         return None if a is None else torch.from_numpy(a).to(device)
@@ -463,4 +500,5 @@ def ell_adjacency(
         virt_map=arrays["virt_map"], t_virt_map=t_arrays["virt_map"],
         n_virt=fwd["n_virt"], n_hub=fwd["n_hub"],
         t_n_virt=bwd["n_virt"], t_n_hub=bwd["n_hub"],
+        tiler=fwd["tiler"], t_tiler=bwd["tiler"],
     )

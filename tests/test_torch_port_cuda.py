@@ -1033,3 +1033,72 @@ def test_capture_that_cannot_proceed_raises(cuda):
     res = fit_gcn(params, adam_l2, plain_forward, labels, idx,
                   train_iters=5)
     assert res.iters_run == 5 and torch.isfinite(res.log_probs).all()
+
+
+# ---- the model axis: tensor parallelism over the hidden width ------------
+
+
+@pytest.mark.cuda
+def test_model_axis_meshes_default_to_the_card(cuda):
+    from gcn_tpu_torch.parallel import create_mesh_2d, create_mesh_hier_model
+
+    assert create_mesh_2d(4, 2).device.type == "cuda"
+    assert create_mesh_hier_model(2, 2, 2).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flavor,parts", [
+    (dict(), 2), (dict(overlap="split"), 2), (dict(overlap=False), 1),
+    (dict(exchange="halo_padded"), 2), (dict(exchange="halo_hier"), 2),
+    (dict(kernel="segsum"), 0), (dict(exchange="all_gather"), 0)])
+def test_model_axis_step_on_card_matches_cpu(cuda, flavor, parts):
+    """Two model-axis steps at dropout 0, 4 bands x 2 model slots in one
+    process (2 x 2 x 2 for the hierarchical exchange), card against CPU from
+    the same parameters: losses at rtol 1e-4, eval log-probs at atol 1e-4 +
+    rtol 1e-5, post-step parameters at rtol 1e-5 + atol 1e-6. K1 runs on
+    each slot's hidden shard (20 of 40 columns, then 5 classes' 20 hidden
+    columns): ``parts`` launches a layer and slot forward, as many for dX,
+    none on the CPU."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models.gcn_core import init_gcn_params
+    from gcn_tpu_torch.parallel import (create_mesh_2d,
+                                        create_mesh_hier_model,
+                                        gather_model_params,
+                                        make_sharded_gcn_train_step)
+    from gcn_tpu_torch.train.optim import adam_l2
+    from gcn_tpu_torch.utils.checkpoint import named_leaves
+
+    g, sg, x, labels, _ = _sharded_problem("cpu")
+    p0 = params_to_numpy(init_gcn_params(torch.Generator().manual_seed(3),
+                                         24, 40, 5, device="cpu"))
+    mask = np.zeros(g.shape[0], np.float32)
+    mask[::3] = 1.0
+    runs = {}
+    for device in ("cpu", cuda):
+        mesh = (create_mesh_hier_model(2, 2, 2, device)
+                if flavor.get("exchange") == "halo_hier"
+                else create_mesh_2d(4, 2, device))
+        step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, model_axis="model", **flavor)
+        adj, xs, ys, ms = shard_fn(x, labels, mask)
+        assert xs[0].shape[1] == 12
+        params = params_from_numpy(p0, device)
+        opt = adam_l2([t.requires_grad_(True)
+                       for _, t in named_leaves(params)])
+        before = es.spmm_ell_launches
+        losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
+                  for i in range(2)]
+        lp = eval_fn(params, adj, xs).cpu()
+        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before,
+                             gather_model_params(params, mesh))
+    (l_cpu, lp_cpu, k1_cpu, p_cpu), (l_card, lp_card, k1_card, p_card) = \
+        runs.values()
+    assert k1_cpu == 0
+    assert k1_card == 8 * parts * (4 * 2 + 2)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)
+    for layer in p_cpu:
+        for k in p_cpu[layer]:
+            torch.testing.assert_close(p_card[layer][k].cpu(),
+                                       p_cpu[layer][k], rtol=1e-5,
+                                       atol=1e-6)

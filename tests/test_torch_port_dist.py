@@ -389,9 +389,7 @@ def test_sharded_matches_unsharded_port():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model_axis="model"), "2-D model axis"),
     (dict(exchange_dtype="auto"), "projection.py"),
-    (dict(axis="rows"), "2-D model axis"),
     (dict(widths=(16, 40, 4)), "projection.py"),
 ])
 def test_unported_options_raise(kw, match):
@@ -403,7 +401,10 @@ def test_unported_options_raise(kw, match):
 @pytest.mark.parametrize("kw", [dict(overlap="block"),
                                 dict(exchange="all_gather", kernel="ell"),
                                 dict(exchange="all_gather",
-                                     exchange_dtype="bf16")])
+                                     exchange_dtype="bf16"),
+                                # a 1-D mesh has no model axis and no "rows"
+                                dict(model_axis="model"),
+                                dict(axis="rows")])
 def test_bad_options_raise(kw):
     sg = shard_graph_by_rows(_port(_sbm_graph()[0]), NS)
     with pytest.raises(ValueError):

@@ -3,7 +3,9 @@ forms of G), runs the panel and frequency-split SpMMs, saves and resumes a
 training state, takes sharded training steps over two row bands and every
 exchange and layout flavor over four, imports the host modules (loaders,
 CSV dumps, row analysis, artifacts, profiling), reorders by gorder and
-profiles a fitted model's ops, with jax and gcn_tpu blocked."""
+profiles a fitted model's ops, takes a step on a 2 x 2 mesh with a model
+axis, tiles with the native tiler and runs the rest of CSRGraph, with jax
+and gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -132,6 +134,27 @@ m4.fit(data.features, data.adj, data.labels, data.idx_train, train_iters=3,
 assert [h["loss_train"] for h in m4.history] == [h["loss_train"]
                                                  for h in m.history]
 assert "fit_scan" in m.timers.names()
+from gcn_tpu_torch.parallel import (create_mesh_2d, gather_model_params,
+                                    pad_model_params, shard_model_params)
+import gcn_tpu_torch.tile.native
+from gcn_tpu_torch.tile.ell import ell_adjacency, tile_route
+sg2 = shard_graph_by_rows(g, 2)
+step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+    create_mesh_2d(2, 2, "cpu"), sg2, dropout=0.5, model_axis="model")
+a, xs, ys, ms = shard_fn(data.features, data.labels,
+                         np.ones(data.num_nodes, np.float32))
+params = pad_model_params(init_gcn_params(
+    torch.Generator().manual_seed(0), data.num_features, 8,
+    data.num_classes, device="cpu"), 2)
+opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
+assert np.isfinite(float(step(params, opt, (1, 0), a, xs, ys, ms)))
+assert eval_fn(params, a, xs).shape[1] == data.num_classes
+assert gather_model_params(params, create_mesh_2d(2, 2, "cpu"))[
+    "gc1"]["w"].shape[1] == 8
+ea = ell_adjacency(g, device="cpu")
+assert ea.tiler in ("native", "numpy", "ladder")
+g.copy().to_dag().eliminate_zeros().permute_rows(
+    np.arange(g.shape[0])[::-1]).validate()
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)
