@@ -133,6 +133,17 @@ Phases (each failure exits non-zero):
      with K1's launches as reckoned, the median step and a profile beside
      the 1-D step's; and K1's time in each use beside ``torch.sparse.mm``
      and the bound;
+     [projection]: the committed capture of the card's rates
+     (``gcn_tpu_torch/captures/h100.json``) must name this card and hold
+     every rate, and its K1 plain rate, its 4-shard sharded scale and its
+     f32 matmul rate must lie within 0.5x-2x of this run's (phase 4's K1
+     time, the [dist] rows of shard 0's parts, the matmul re-timed); the
+     sharded step with ``exchange_dtype="auto"``, widths (128, 32, 40), on
+     the ragged plan (it must pick bf16) and on the 2 x 2 hierarchical
+     plan, 5 steps at dropout 0 through K1 (launches as reckoned), each
+     bit-equal to the step with the resolved wire named; and the full-step
+     projection on the capture's rates (powerlaw, 8,192 nodes a card, d =
+     8, 16, 32, 8 cards a node, bf16 and fp8 wires), one JSON row per d;
  13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
      printed): K1 against its plain version in float64 on G (k_pad 128, P
@@ -182,6 +193,7 @@ without the repository beside it, it exits non-zero and prints no result.
 """
 
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -1006,7 +1018,7 @@ def dist_launches(n_shards, widths, chunk, steps):
     return n_shards * (2 * fwd * steps + fwd)
 
 
-def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
+def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
     """Row-band sharded GCN on synth-arxiv, four shards in this process
     on the card: the plan, K1 on shard 0's parts against its float64 plain
     version, sharded against unsharded, the all_gather baseline, the bf16
@@ -1282,14 +1294,18 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0):
     run = dict(mesh=mesh, sg=sg, g=g, start=start, fit=fit,
                evaluate=evaluate, unsharded=unsharded,
                unsharded_lp=unsharded_lp, interior=parts["interior"][0],
+               halo=parts["halo"][0],
                labels=labels, idx_test=idx_test, n=n, nhid=nhid, ncls=ncls,
                nfeat=p0["gc1"]["w"].shape[0],
                dist_losses=halo_l, dist_lp=halo_lp, dist_params=halo_params,
                dist_step_ms=dist_step_ms, dist_profile=dist_profile,
                dist_launches=launches, steps=steps)
     del state, first, second, parts, xs_k
+    dist_rows = list(rows)
     rows += dist_flavor_phases(dev, run)
-    return rows + model_axis_phase(dev, run)
+    rows += model_axis_phase(dev, run)
+    projection_phase(dev, run, dist_rows, plain_ms, g.nnz)
+    return rows
 
 
 def sharded_k1_row(a, t, xk, label, launches, path, err):
@@ -1667,6 +1683,162 @@ def model_axis_phase(dev, run):
     del state, parts, xs_k
     torch.cuda.empty_cache()
     return rows
+
+
+# the projection's rates re-measured here must fall within these ratios of
+# the committed capture's, else the capture is stale
+CAPTURE_RATIO = (0.5, 2.0)
+AUTO_WIDTHS = (128, 32, 40)
+PROJECTION_DEVICES = (8, 16, 32)
+
+
+class _Records(logging.Handler):
+    """Collects the messages of a logger (the sharded step's auto wire)."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def projection_phase(dev, run, rows, plain_ms, nnz):
+    """[projection]: the committed capture of the card's rates held against
+    this run's own (K1's plain rate from the main path's timing, the
+    sharded scale from the [dist] rows of shard 0's parts, the f32 matmul
+    rate re-measured), within CAPTURE_RATIO; the sharded step with
+    ``exchange_dtype="auto"`` on the 4-shard ragged plan (which must resolve
+    to bf16) and on the 2 x 2 hierarchical plan, 5 steps at dropout 0
+    through K1, each bit-equal to the same step with the resolved wire
+    named; and the full-step projection on the capture's rates (powerlaw,
+    8,192 nodes a card, d = 8, 16, 32, 8 cards a node, bf16 and fp8)."""
+    import numpy as np
+
+    from gcn_tpu_torch.parallel import (build_halo_plan_hier,
+                                        create_mesh_hier,
+                                        make_sharded_gcn_train_step)
+    from gcn_tpu_torch.parallel import projection as pj
+    from gcn_tpu_torch.time_sharded import matmul_rate
+
+    cap = pj.load_capture()
+    if cap is None:
+        fail(f"the capture {pj.CAPTURE_NAME} is missing or unreadable")
+    card = smi_line()
+    print(f"[projection] capture {pj.CAPTURE_NAME}: {cap.get('card')}, "
+          f"torch {cap.get('torch')}, commit {cap.get('commit')}; this "
+          f"card: {card}", flush=True)
+    if cap.get("card", "").split(",")[0] != card.split(",")[0]:
+        fail(f"the capture names another card: {cap.get('card')}")
+    try:
+        want = {
+            "K1 plain rate (edges/s)": cap["spmm"]["edges_per_s"],
+            "sharded scale, 4 shards, band 0's parts, k=32":
+                cap["check"]["production_parts"]["blocks_over_plain"],
+            "f32 matmul rate (flop/s)": cap["matmul"]["flops_per_s"]}
+        rates = [cap[t]["production_parts"]["blocks_over_plain"]
+                 for t in ("k_pad_32", "k_pad_128")]
+        rates += [cap[t]["sharded_over_plain"]
+                  for t in ("k_pad_32", "k_pad_128")]
+        rates.append(cap["links"]["bw_ici"])
+    except (KeyError, TypeError) as e:
+        fail(f"the capture lacks a rate: {e!r}")
+    if not all(isinstance(v, (int, float)) and v > 0
+               for v in list(want.values()) + rates):
+        fail("the capture holds a rate that is not a positive number")
+    rate = nnz / (plain_ms * 1e-3)
+    by_use = {use[:3]: r for use, r in zip(DIST_USES, rows)}
+    edges = run["interior"].nnz + run["halo"].nnz
+    part_ms = (by_use["interior", False, 32]["ms"]
+               + by_use["halo", False, 32]["ms"])
+    flops, _ = matmul_rate(dev)
+    got = {"K1 plain rate (edges/s)": rate,
+           "sharded scale, 4 shards, band 0's parts, k=32":
+               part_ms * 1e-3 * rate / edges,
+           "f32 matmul rate (flop/s)": flops}
+    for name, v in want.items():
+        ratio = got[name] / v
+        ok = CAPTURE_RATIO[0] <= ratio <= CAPTURE_RATIO[1]
+        print(f"  {name}: capture {v:.4e}, this run {got[name]:.4e}, ratio "
+              f"{ratio:.3f} -> {'ok' if ok else 'STALE'}", flush=True)
+        if not ok:
+            fail(f"{name}: the capture's {v:.4e} against this run's "
+                 f"{got[name]:.4e}: the capture is stale")
+    print(f"  the capture's production scales (8 shards, every band, "
+          f"forward): pass-block {rates[0]:.3f} / {rates[1]:.3f}, "
+          f"monolithic {rates[2]:.3f} / {rates[3]:.3f} at k_pad 32 / 128; "
+          f"bw_ici {rates[4]:.4e} B/s ({pj.measured_bw_ici()[1]}; not "
+          f"re-measured on one card)", flush=True)
+
+    records = _Records()
+    step_log = logging.getLogger("gcn_tpu_torch.parallel.train_step")
+    step_log.addHandler(records)
+    step_log.setLevel(logging.INFO)
+    sg, ns = run["sg"], run["sg"].n_shards
+    widths = (run["nhid"], run["ncls"])
+    for label, mesh, opts in (
+            ("ragged, 4 shards", run["mesh"], {}),
+            ("halo_hier 2x2", create_mesh_hier(2, 2, dev),
+             dict(exchange="halo_hier"))):
+        records.messages.clear()
+        step, _, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, exchange_dtype="auto", widths=AUTO_WIDTHS,
+            exchange_chunk=DIST_CHUNK, k_pad=32, **opts)
+        if len(records.messages) != 1:
+            fail(f"auto wire, {label}: {records.messages}")
+        wire = records.messages[0].split("-> ")[1].split(" ")[0]
+        print(f"[projection auto wire] {label}, widths {AUTO_WIDTHS}: "
+              f"{records.messages[0]}", flush=True)
+        if wire not in ("bf16", "fp8"):
+            fail(f"auto wire, {label}: resolved to {wire!r}")
+        if not opts and wire != "bf16":
+            fail(f"auto wire on the ragged plan resolved to {wire}, not bf16")
+        reset_launches()
+        auto_l, _ = run["fit"](step, run["start"](shard_fn), 5)
+        launches = read_launches()
+        # 5 steps, no eval forward
+        expected = 5 * (dist_launches(ns, widths, DIST_CHUNK, 1)
+                        - dist_launches(ns, widths, DIST_CHUNK, 0))
+        step, _, shard_fn = make_sharded_gcn_train_step(
+            mesh, sg, dropout=0.0, exchange_dtype=wire, widths=AUTO_WIDTHS,
+            exchange_chunk=DIST_CHUNK, k_pad=32, **opts)
+        named_l, _ = run["fit"](step, run["start"](shard_fn), 5)
+        same = auto_l == named_l
+        print(f"  5 steps, dropout 0: auto {auto_l}; {wire} named "
+              f"{named_l}: bit-equal {same}; K1 launches {launches[0]} "
+              f"(expected {expected})", flush=True)
+        if not same:
+            fail(f"auto wire, {label}: losses differ from the {wire} step")
+        if launches[0] != expected:
+            fail(f"auto wire, {label}: {launches[0]} K1 launches, expected "
+                 f"{expected}")
+        check_close_losses(f"auto wire {label} vs f32", auto_l,
+                           run["dist_losses"], 0.05)
+    step_log.removeHandler(records)
+    hier = build_halo_plan_hier(sg, 2, 2)
+    print(f"  the 2 x 2 plan's volumes: intra {hier.intra_sizes}, inter "
+          f"{hier.inter_sizes}, fan-out rows {hier.ici_gather_rows}",
+          flush=True)
+
+    for wire, bpe in (("bf16", 2), ("fp8", 1)):
+        t0 = time.time()
+        prows, meta = pj.project_weak_scaling_fullstep(
+            list(PROJECTION_DEVICES), nodes_per_device=8192,
+            workload="powerlaw", chips_per_host=8, bytes_per_elt=bpe)
+        print(f"[projection fullstep] {wire} wire, powerlaw, 8192 nodes a "
+              f"card, 8 a node ({time.time() - t0:.1f}s on the host); rates:"
+              f" spmm {meta['spmm_edges_per_s']:.4e} "
+              f"({meta['spmm_rate_source']}), scales "
+              f"{meta['kernel_scale_split']:.3f} / "
+              f"{meta['kernel_scale_mono']:.3f}, mxu "
+              f"{meta['mxu_flops']:.4e}, bw_ici {meta['bw_ici_B_per_s']:.4e}"
+              f", bw_dcn {meta['bw_dcn_B_per_s']:.4e} "
+              f"({meta['bw_dcn_source']})", flush=True)
+        for r in prows:
+            j = r.to_json()
+            if not (0 < j["eff"]["1.0"] <= 1 and np.isfinite(j["step_ms"])):
+                fail(f"projection row out of range: {j}")
+            print(f"  {json.dumps(j)}", flush=True)
 
 
 def orders_phase(dev, data):
@@ -2481,7 +2653,7 @@ def main():
     # ---- 10.-13. resumable state, the frequency split, sharded, HGNN ------
     gcn_resume_phase(dev, data, losses)
     freq_rows = freq_phases(dev, g, data, p0, hist["cuda"], adj)
-    dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0)
+    dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0, k1_ms)
     hgnn_rows = hgnn_phases(dev)
     order_rows = orders_phase(dev, data)
     train_gcn_flags_in_child(order_rows)

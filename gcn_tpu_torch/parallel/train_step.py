@@ -38,14 +38,14 @@ baseline); ``kernel`` "ell" (K1, needs a halo exchange) or "segsum"
 (``index_add``); ``overlap`` True / "blocks" (the pass-block partition),
 "split" (the row-split parts in part-degree order) or False (the
 monolithic layout: ``x @ w``, the exchange, then K1 on concat(halo,
-band)); ``exchange_dtype`` None, "bf16" or "fp8" (the halo wire);
+band)); ``exchange_dtype`` None, "bf16", "fp8" (the halo wire) or "auto"
+(``projection.recommend_wire_dtype`` on the plan this run builds, at the
+layer ``widths`` (nfeat, nhid, nclass), which nothing else reads);
 ``exchange_chunk`` ("auto" = ``k_pad``, None = no chunking); ``k_pad``;
 ``axis`` (the mesh's row axes: "data", or ("host", "chip"), the default for
 "halo_hier"); ``model_axis``. The port adds ``hier_fanout``, the
 hierarchical plan's fan-out ("ragged", the one gcn_tpu's step builds, or
-"all_gather"). Not ported yet, each raising ``NotImplementedError``
-(ROADMAP.md, "Still to port"): ``exchange_dtype="auto"`` and its
-``widths``.
+"all_gather").
 
 Dropout draws each band's mask from a ``torch.Generator`` seeded from
 (seed, iteration, band) (``band_seed``), and with a model axis each slot's
@@ -57,6 +57,7 @@ holds at dropout 0.
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Tuple
 
 import numpy as np
@@ -71,11 +72,6 @@ from gcn_tpu_torch.utils.checkpoint import named_leaves
 
 _EXCHANGES = ("halo", "halo_padded", "halo_hier", "all_gather")
 _WIRES = {None: None, "bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Still to port': {item})")
 
 
 def band_seed(seed: int, iteration: int, band: int) -> int:
@@ -288,11 +284,9 @@ def make_sharded_gcn_train_step(
     """
     if exchange not in _EXCHANGES:
         raise ValueError(f"exchange must be one of {_EXCHANGES}")
-    if exchange_dtype == "auto" or widths is not None:
-        raise _not_ported("exchange_dtype='auto' (and its widths)",
-                          "projection.py on H100 and NVLink numbers")
-    if exchange_dtype not in _WIRES:
-        raise ValueError(f"exchange_dtype must be one of {tuple(_WIRES)}")
+    if exchange_dtype != "auto" and exchange_dtype not in _WIRES:
+        raise ValueError(f"exchange_dtype must be one of "
+                         f"{tuple(_WIRES) + ('auto',)}")
     if exchange_dtype is not None and exchange == "all_gather":
         raise ValueError("exchange_dtype applies to the halo exchanges only; "
                          "the all_gather baseline ships the compute dtype")
@@ -344,6 +338,18 @@ def make_sharded_gcn_train_step(
             plan = halo.build_halo_plan(sg)
         else:
             plan = halo.build_halo_plan_ragged(sg)
+        if exchange_dtype == "auto":
+            # the wire policy on this run's exact plan volumes (with a model
+            # axis, the band plan every model slot exchanges over); its
+            # inputs are host data, the same on every rank, so every
+            # process resolves the same wire
+            from gcn_tpu_torch.parallel.projection import (
+                recommend_wire_dtype)
+
+            exchange_dtype, why = recommend_wire_dtype(sg, plan,
+                                                       widths=widths)
+            logging.getLogger(__name__).info("auto halo wire -> %s (%s)",
+                                             exchange_dtype, why)
         send_idx = per_slot(halo.send_indices(plan, owned, dev))
         ex_fn = halo.make_halo_exchange(plan, _WIRES[exchange_dtype])
         layout = dict(k_pad=k_pad, shards=owned, device=dev)

@@ -16,7 +16,8 @@ the cards, gloo with ``--device cpu``):
     torchrun --nproc-per-node 2 -m gcn_tpu_torch.train_gcn_dist \\
         --shards 4 -g synth-arxiv -k 32
 
-Same flags as gcn_tpu's script, less ``--halo-wire auto``;
+Same flags as gcn_tpu's script (``--halo-wire auto`` picks the wire from
+the plan's volumes and the card's rates, ``parallel/projection.py``);
 ``--save-state`` / ``--resume-state`` write and read the training
 state in gcn_tpu's checkpoint layout (``utils/checkpoint.py``). The dropout
 stream is a function of (seed, iteration, band), so a resumed run equals an
@@ -25,6 +26,7 @@ uninterrupted one. Runs on the card unless ``--device cpu`` is given; rank
 """
 
 import argparse
+import logging
 import os
 import sys
 import time
@@ -51,10 +53,12 @@ def main(argv=None):
                     help="exchange_dtype='bf16': bf16 payload on the wire "
                          "(forward and backward), cast back on arrival")
     ap.add_argument("--halo-wire", default=None,
-                    choices=["f32", "bf16", "fp8"],
+                    choices=["f32", "bf16", "fp8", "auto"],
                     help="wire dtype of the halo payload: bf16 halves the "
                          "bytes, fp8 (float8_e4m3fn, clipped) quarters "
-                         "them. Overrides --halo-bf16.")
+                         "them; auto picks fp8 only where the projection "
+                         "on this plan says the network bytes bind. "
+                         "Overrides --halo-bf16.")
     ap.add_argument("--no-overlap", action="store_true",
                     help="the monolithic layout: the exchange, then K1 on "
                          "concat(halo, band), no overlap (ablation)")
@@ -148,12 +152,18 @@ def main(argv=None):
     log(f"reorder+shard: {time.time() - t0:.2f}s, {d} bands of "
         f"{sg.rows_per_shard} rows")
 
-    wire = ({"f32": None, "bf16": "bf16", "fp8": "fp8"}[args.halo_wire]
+    wire = ((None if args.halo_wire == "f32" else args.halo_wire)
             if args.halo_wire else ("bf16" if args.halo_bf16 else None))
+    if wire == "auto" and mesh.rank == 0:
+        # print the wire the step resolves (its log record)
+        step_log = logging.getLogger("gcn_tpu_torch.parallel.train_step")
+        step_log.addHandler(logging.StreamHandler(sys.stdout))
+        step_log.setLevel(logging.INFO)
     t0 = time.time()
     step, eval_fn, shard_fn = make_sharded_gcn_train_step(
         mesh, sg, dropout=args.dropout, exchange=args.exchange,
         overlap=not args.no_overlap, exchange_dtype=wire,
+        widths=(data.num_features, args.hidden, data.num_classes),
         exchange_chunk=args.exchange_chunk or None,
         k_pad=args.k_pad or next(
             k for k in (32, 64, 128)

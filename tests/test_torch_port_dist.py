@@ -15,10 +15,16 @@ bf16 rounding can flip one ulp where the f32 values it rounds differ in
 their last bit, so eval log-probs there hold at atol 1e-3). Two gloo
 processes of two shards each match one process of four at rtol 1e-5, and
 the dist CLI resumes exactly. ``with_relu`` and ``with_bias`` match
-gcn_tpu's, in one process and in two.
+gcn_tpu's, in one process and in two. ``exchange_dtype="auto"`` resolves the
+wire gcn_tpu's auto step resolves (both packages' policies patched to one
+set of rates) and then equals the named wire's step bit for bit; over two
+gloo processes every rank resolves the same wire; the CLI's ``--halo-wire
+auto`` ends where the named wire ends.
 """
 
 import dataclasses
+import json
+import re
 import subprocess
 import sys
 
@@ -55,6 +61,7 @@ from torch_port_dist_graphs import problem as _problem
 from torch_port_dist_graphs import sbm_graph as _sbm_graph
 from torch_port_dist_graphs import subprocess_env as _env
 from torch_port_dist_graphs import free_port as _free_port
+from torch_port_dist_graphs import gloo_outputs as _gloo_outputs
 
 
 @pytest.mark.parametrize("name", list(GRAPHS))
@@ -388,20 +395,91 @@ def test_sharded_matches_unsharded_port():
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(exchange_dtype="auto"), "projection.py"),
-    (dict(widths=(16, 40, 4)), "projection.py"),
-])
-def test_unported_options_raise(kw, match):
-    sg = shard_graph_by_rows(_port(_sbm_graph()[0]), NS)
-    with pytest.raises(NotImplementedError, match=match):
-        make_sharded_gcn_train_step(create_mesh(NS, "cpu"), sg, **kw)
+# the rates both packages' wire policies read, the same in both: a network of
+# 1 MB/s makes the hierarchical plan byte-bound, so auto picks fp8 there
+AUTO_RATES = dict(spmm_edges_per_s=3.3e10, mxu_flops=1.3e13, bw_ici=3.0e11,
+                  bw_dcn=1.0e6)
+
+
+def _patch_wire_policy(monkeypatch):
+    """Both packages' ``recommend_wire_dtype`` at AUTO_RATES and the same
+    kernel scales (each step imports it from its projection module when it
+    resolves the wire)."""
+    from functools import partial
+
+    from gcn_tpu.parallel import projection as jx_proj
+    from gcn_tpu_torch.parallel import projection as pt_proj
+
+    for proj in (jx_proj, pt_proj):
+        monkeypatch.setattr(proj, "measured_kernel_scales",
+                            lambda *a, **k: ((1.0, 1.0), "patched"))
+        monkeypatch.setattr(proj, "recommend_wire_dtype",
+                            partial(proj.recommend_wire_dtype, **AUTO_RATES))
+
+
+def _resolved(caplog, package):
+    """The wires ``package``'s sharded step logged for exchange_dtype="auto"
+    (its logger's "auto halo wire -> WIRE (why)" records)."""
+    return [r.getMessage().split("-> ")[1].split(" ")[0]
+            for r in caplog.records
+            if r.name == f"{package}.parallel.train_step"]
+
+
+@pytest.mark.parametrize("exchange,hier,wire", [("halo", None, "bf16"),
+                                                ("halo_hier", (2, 2), "fp8")])
+def test_auto_wire_equals_named_wire_and_gcn_tpu(monkeypatch, caplog,
+                                                 exchange, hier, wire):
+    """``exchange_dtype="auto"`` with ``widths`` resolves on the plan the
+    step builds (the ragged plan to bf16 by rule, the 2 x 2 plan to fp8 at
+    AUTO_RATES), as gcn_tpu's auto step does; its losses and log-probs are
+    the named wire's, bit for bit, and gcn_tpu's auto step's at that wire's
+    tolerance (test_wire_matches_gcn_tpu's), at dropout 0."""
+    import logging
+
+    _patch_wire_policy(monkeypatch)
+    caplog.set_level(logging.INFO)
+    jg, x, labels, mask, p0 = _problem()
+    g = _port(jg)
+    kw = dict(exchange=exchange, exchange_chunk=16, widths=(16, 40, 4))
+    got_l, got_lp = _port_run(g, x, labels, mask, p0, hier=hier,
+                              exchange_dtype="auto", **kw)
+    want_l, want_lp = _jax_run(jg, x, labels, mask, p0, hier=hier,
+                               exchange_dtype="auto", **kw)
+    assert _resolved(caplog, "gcn_tpu_torch") == [wire]
+    assert _resolved(caplog, "gcn_tpu") == [wire]
+    named_l, named_lp = _port_run(g, x, labels, mask, p0, hier=hier,
+                                  exchange_dtype=wire, **kw)
+    np.testing.assert_array_equal(got_l, named_l)
+    np.testing.assert_array_equal(got_lp, named_lp)
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4, atol=0)
+    np.testing.assert_allclose(got_lp, want_lp, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("hier", [None, (2, 2)])
+def test_auto_wire_is_one_wire_over_gloo_processes(hier):
+    """Two gloo processes of two shards resolve the same wire from the
+    capture's rates (the inputs are host data, the same on every rank) and
+    take the steps of one process of four."""
+    extra = dict(exchange="halo_hier", hier=hier) if hier else {}
+    outs = _gloo_outputs(exchange_dtype="auto", widths=[16, 40, 4],
+                         dropout=0.0, **extra)
+    wires = [re.findall(r"auto halo wire -> (\w+)", o) for o in outs]
+    assert len(wires[0]) == 1 and wires[0] == wires[1], wires
+    losses = [json.loads(re.search(r"LOSSES (\[.*\])", o).group(1))
+              for o in outs]
+    assert losses[0] == losses[1]
+    want, _ = one_process_of_gloo_problem(
+        dropout=0.0, exchange_dtype="auto", widths=(16, 40, 4),
+        exchange=extra.get("exchange", "halo"), hier=hier)
+    np.testing.assert_allclose(losses[0], want, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("kw", [dict(overlap="block"),
                                 dict(exchange="all_gather", kernel="ell"),
                                 dict(exchange="all_gather",
                                      exchange_dtype="bf16"),
+                                dict(exchange="all_gather",
+                                     exchange_dtype="auto"),
                                 # a 1-D mesh has no model axis and no "rows"
                                 dict(model_axis="model"),
                                 dict(axis="rows")])
@@ -520,3 +598,18 @@ def test_dist_cli_two_processes_match_one():
     assert outs[1] == ""          # only rank 0 prints
     assert _final_loss(outs[0]) == pytest.approx(_final_loss(one.stdout),
                                                  rel=1e-5)
+
+
+@pytest.mark.parametrize("hier", [[], ["--exchange", "halo_hier", "--hier",
+                                       "2", "2"]])
+def test_dist_cli_auto_wire_equals_the_named_wire(hier):
+    """``--halo-wire auto`` prints the wire it resolves (bf16 on the ragged
+    plan) and ends at the loss of that wire named, at dropout 0."""
+    auto = _cli(["-i", "3", "--dropout", "0", "--halo-wire", "auto"] + hier)
+    assert auto.returncode == 0, auto.stderr[-2000:]
+    wire = re.search(r"auto halo wire -> (\w+)", auto.stdout).group(1)
+    if not hier:
+        assert wire == "bf16"
+    named = _cli(["-i", "3", "--dropout", "0", "--halo-wire", wire] + hier)
+    assert named.returncode == 0, named.stderr[-2000:]
+    assert _final_loss(auto.stdout) == _final_loss(named.stdout)

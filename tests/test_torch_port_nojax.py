@@ -4,7 +4,9 @@ training state, takes sharded training steps over two row bands and every
 exchange and layout flavor over four, imports the host modules (loaders,
 CSV dumps, row analysis, artifacts, profiling), reorders by gorder and
 profiles a fitted model's ops, takes a step on a 2 x 2 mesh with a model
-axis, tiles with the native tiler and runs the rest of CSRGraph, with jax
+axis, tiles with the native tiler and runs the rest of CSRGraph, imports
+the projection, the measurement and host scripts and the lazy top-level
+names, projects a full step and takes a step with the auto wire, with jax
 and gcn_tpu blocked."""
 
 import os
@@ -155,6 +157,24 @@ ea = ell_adjacency(g, device="cpu")
 assert ea.tiler in ("native", "numpy", "ladder")
 g.copy().to_dag().eliminate_zeros().permute_rows(
     np.arange(g.shape[0])[::-1]).validate()
+import gcn_tpu_torch.time_sharded, gcn_tpu_torch.time_links
+import gcn_tpu_torch.bench_scaling, gcn_tpu_torch.ablate_reorder
+import gcn_tpu_torch.row_analysis
+from gcn_tpu_torch.parallel import projection
+assert gcn_tpu_torch.GCN is GCN and gcn_tpu_torch.HGNN is HGNN
+assert gcn_tpu_torch.get_dataset is get_dataset and gcn_tpu_torch.spmm is spmm
+prows, meta = projection.project_weak_scaling_fullstep(
+    [4], nodes_per_device=128, chips_per_host=4, reorder="degree")
+assert 0 < prows[0].eff[1.0] <= 1 and "NVIDIA" in meta["spmm_rate_source"]
+step, eval_fn, shard_fn = make_sharded_gcn_train_step(
+    create_mesh(4, "cpu"), sg4, exchange_dtype="auto",
+    widths=(data.num_features, 8, data.num_classes))
+a, xs, ys, ms = shard_fn(data.features, data.labels,
+                         np.ones(data.num_nodes, np.float32))
+params = init_gcn_params(torch.Generator().manual_seed(0), data.num_features,
+                         8, data.num_classes, device="cpu")
+opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
+assert np.isfinite(float(step(params, opt, (1, 0), a, xs, ys, ms)))
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)

@@ -150,7 +150,7 @@ def subprocess_env():
 
 
 WORKER = r"""
-import json, sys
+import json, logging, sys
 import numpy as np
 from gcn_tpu_torch.data.synthetic import class_features, sbm
 from gcn_tpu_torch.graph.normalize import gcn_normalize
@@ -164,6 +164,10 @@ import torch
 
 coord, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 kw = json.loads(sys.argv[4])
+# the sharded step logs the wire it resolves for exchange_dtype="auto"
+step_log = logging.getLogger("gcn_tpu_torch.parallel.train_step")
+step_log.addHandler(logging.StreamHandler(sys.stdout))
+step_log.setLevel(logging.INFO)
 p0 = kw.pop("params", None)
 hier = kw.pop("hier", None)
 mesh = initialize_multihost(coord, world, rank, n_shards=4, device="cpu")
@@ -190,11 +194,11 @@ print("EVAL", json.dumps(eval_fn(params, a, xs).tolist()))
 """
 
 
-def gloo_run(world=2, **kw):
-    """``world`` gloo worker processes of 4 / world shards each with the
-    step options ``kw`` (``params``: numpy parameters to start from;
-    ``hier``: (hosts, chips) of a hierarchical mesh); returns each rank's
-    losses and the concatenated eval log-probs."""
+def gloo_outputs(world=2, **kw):
+    """The standard output of each of ``world`` gloo worker processes of 4 /
+    world shards each with the step options ``kw`` (``params``: numpy
+    parameters to start from; ``hier``: (hosts, chips) of a hierarchical
+    mesh)."""
     coord = f"127.0.0.1:{free_port()}"
     arg = json.dumps(kw, default=lambda a: np.asarray(a).tolist())
     procs = [subprocess.Popen(
@@ -211,6 +215,13 @@ def gloo_run(world=2, **kw):
             pytest.fail("a gloo worker timed out")
         assert p.returncode == 0, err[-3000:]
         outs.append(out)
+    return outs
+
+
+def gloo_run(world=2, **kw):
+    """Each rank's losses and the concatenated eval log-probs of
+    ``gloo_outputs(world, **kw)``."""
+    outs = gloo_outputs(world, **kw)
     losses = [json.loads(re.search(r"LOSSES (\[.*\])", o).group(1))
               for o in outs]
     lp = np.concatenate([json.loads(re.search(r"EVAL (\[.*\])", o).group(1))
