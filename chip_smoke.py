@@ -39,6 +39,9 @@ Phases (each failure exits non-zero):
   4. K1's time (CUDA events, median of 30 chained calls), its bf16
      variants', the plain versions', ``torch.sparse.mm`` on the same CSR as
      the library yardstick, and the bound reckoned from this run's inputs;
+     [hub fold]: two calls of ``spmm_ell`` (K1 and the hub fold) bit-equal
+     forward and dX at k=32, the fold against the former ``index_add_``
+     fold at rtol 1e-6, and both folds' device ms;
   5. K2 (the panel SpMM) against its plain version in float64, at the f32
      tolerance:
      synth-arxiv forward at k=32 and k=128, the layer-1 hoist at k=128 (4
@@ -66,13 +69,21 @@ Phases (each failure exits non-zero):
      per step + 1 (eval) times and K1 none;
      [captured fit]: the default flavor, ``jit_loop=True`` (one CUDA graph
      of a step, replayed), on the main path and the panel path against
-     phases 7 and 8 from the same parameters and generator (losses at rtol
-     1e-5, outputs at rtol 1e-5 + atol 1e-4, the generator's state
-     equal), both flavors' median step, the wrappers' host calls (the
+     phases 7 and 8 from the same parameters and generator (losses and
+     log-probs bit-equal: every sum of the step is taken in a fixed order,
+     the hub fold's too; the generator's state equal), both flavors'
+     median step, the wrappers' host calls (the
      warm-up steps and the captured one) and, in a second captured run
      under torch.profiler, the kernel records of K1 (4 + 2 x 20 + 1) and
      K2 (its launches an SpMM x 45); then 10 captured steps (replays)
      under torch.profiler with the device-busy share;
+     [wide k_pad]: the layouts GCN builds at hidden 64 (k_pad 64, P=2)
+     and 128 (k_pad 128, P=1): K1 against its float64 plain version at
+     the widths their fits launch (the hoist at k = k_pad, layer 2 at
+     k=40), a 20-step v6 fit at each hidden width in both loop flavors
+     with K1's launches counted (the host counter eager, kernel records
+     captured) and captured bit-equal to eager, and K1's time at each
+     width beside its bound and torch.sparse.mm;
   9. where a v6 step's time goes: 10 more eager steps under
      torch.profiler, with K1's device ms per step;
  10. resume: 10 v6 steps, ``save_state``, 10 more from it; the 20 losses
@@ -200,9 +211,9 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) flop/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+from gcn_tpu_torch.utils.chain_timing import bound_ms as least_ms
+from gcn_tpu_torch.utils.chain_timing import chain_ms, smi_line, spmm_work
+
 RTOL = 1e-5
 ATOL_OF_MAX = 1e-6
 BF16_TOL = 2e-2
@@ -212,14 +223,6 @@ SEED = 15
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
-
-
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0] if out else fail("nvidia-smi printed nothing")
 
 
 def compare(name, got, want, rtol=RTOL, atol=None):
@@ -315,30 +318,6 @@ def split_features(padj):
     for lo, hi in zip(starts[:, :-1].ravel(), starts[:, 1:].ravel()):
         pad_only += int(hi > lo and (lrow[lo:hi] == padj.r).all())
     return cross, pad_only
-
-
-def time_chain(fn, x, n_out_rows, reps):
-    """Median ms per call of ``reps`` chained calls, each fed the first
-    rows of the previous output (CUDA events around every call). The chain
-    is queued behind a spin kernel of ~0.1 s, so the host is done
-    enqueueing before the card reaches it: the events read device time,
-    not the wrapper's Python time."""
-    import torch
-
-    for _ in range(3):
-        fn(x)
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(200_000_000)
-    cur = x
-    for start, end in events:
-        start.record()
-        out = fn(cur)
-        end.record()
-        cur = out[:n_out_rows]
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def profile_steps(model, idx_train, steps, captured=False):
@@ -480,9 +459,7 @@ def spmm_bound(nnz, win_off, n_in, n_out, k):
     not work), ``win_off``, x's ``n_in`` rows read once and the operator's
     ``n_out`` rows written once, over the HBM rate; 2 flop an edge and
     column over the f32 peak. Returns (ms, "bytes" | "operations")."""
-    bytes_moved = (nnz * 8 + win_off.numel() * 4 + n_in * k * 4
-                   + n_out * k * 4)
-    return bound(bytes_moved, 2 * nnz * k)
+    return bound(*spmm_work(nnz, win_off.numel(), n_in, n_out, k))
 
 
 def k1_bound(adj, k, t=False):
@@ -492,17 +469,6 @@ def k1_bound(adj, k, t=False):
     win_off = adj.t_win_off if t else adj.win_off
     n_out, n_in = (adj.n_cols, adj.n_rows) if t else (adj.n_rows, adj.n_cols)
     return spmm_bound(adj.nnz, win_off, n_in, n_out, k)
-
-
-def csr_tensor(g, device):
-    """``g`` (a CSRGraph) as a torch sparse CSR tensor: the operand of
-    ``torch.sparse.mm``, the library yardstick."""
-    import torch
-
-    return torch.sparse_csr_tensor(
-        torch.as_tensor(g.indptr, dtype=torch.int64),
-        torch.as_tensor(g.indices, dtype=torch.int64),
-        torch.as_tensor(g.data), size=g.shape, device=device)
 
 
 def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
@@ -518,11 +484,11 @@ def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
 
     cols, vals, win, win_off, n_out, n_in = k1_arrays(adj, t)
     k = x.shape[1]
-    ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
-                                          n_out), x, n_in, reps)
-    plain_ms = time_chain(lambda v: es._ell_spmm_plain(
-        v, cols, vals, win, win_off, n_out), x, n_in, 3)
-    lib_ms = time_chain(lambda v: torch.sparse.mm(csr, v), x, n_in, reps)
+    ms = chain_ms(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
+                                        n_out), x, reps, n_in)
+    plain_ms = chain_ms(lambda v: es._ell_spmm_plain(
+        v, cols, vals, win, win_off, n_out), x, 3, n_in)
+    lib_ms = chain_ms(lambda v: torch.sparse.mm(csr, v), x, reps, n_in)
     print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} ms "
           f"| torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
     bound_ms, bound_by = k1_bound(adj, k, t)
@@ -543,13 +509,10 @@ def k2_bound(padj, n_in, k):
 
 
 def bound(bytes_moved, flops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    print(f"  bound {max(t_bytes, t_ops) * 1e3:.2f} us "
-          f"({bytes_moved / 1e6:.1f} MB at 3.35 TB/s; {flops / 1e6:.1f} "
-          f"Mflop at 67 TFLOP/s f32)", flush=True)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    ms, by = least_ms(bytes_moved, flops)
+    print(f"  bound {ms * 1e3:.2f} us ({bytes_moved / 1e6:.1f} MB at 3.35 "
+          f"TB/s; {flops / 1e6:.1f} Mflop at 67 TFLOP/s f32)", flush=True)
+    return ms, by
 
 
 def panel_fit(params, feats, padj, labels, idx, steps, dropout, device,
@@ -854,7 +817,7 @@ def hgnn_phases(dev):
     for name, k, form, use in uses:
         a, t, csr_g = operands[name]
         row = k1_use(f"HGNN {name} k={k} ({use})", a, t, xs[k],
-                     csr_tensor(csr_g, dev), runs[form],
+                     csr_g.to_torch(dev), runs[form],
                      f"HGNN {form}, {HGNN_EPOCHS} epochs", K1_REPLACES)
         row["max_abs_err"] = errs[name, k]
         rows.append(row)
@@ -911,7 +874,7 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
                 es._ell_spmm_plain(x.double(), single.cols,
                                    single.vals.double(), single.win,
                                    single.win_off, single.row_space),
-                single.virt_map, single.n_hub, n))
+                single))
     xf = x.clone().requires_grad_(True)
     spmm_ell_freq(fs, xf).backward(ct)
     xs = x.clone().requires_grad_(True)
@@ -942,9 +905,9 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
     check_close_losses("freq-split vs ELL path", losses_of(m), ell_losses,
                        1e-4)
 
-    freq_ms = time_chain(lambda v: spmm_ell_freq(fs, v), x, n, 30)
-    single_ms = time_chain(lambda v: es.spmm_ell(single, v), x, n, 30)
-    main_ms = time_chain(lambda v: es.spmm_ell(adj, v), x, n, 30)
+    freq_ms = chain_ms(lambda v: spmm_ell_freq(fs, v), x, 30, n)
+    single_ms = chain_ms(lambda v: es.spmm_ell(single, v), x, 30, n)
+    main_ms = chain_ms(lambda v: es.spmm_ell(adj, v), x, 30, n)
     print(f"[freq split timing] k=32: spmm_ell_freq {freq_ms:.4f} ms (two "
           f"K1 launches, the sum) | single-table spmm_ell on the same order "
           f"{single_ms:.4f} ms (n_hub={single.n_hub}) | on the main path's "
@@ -965,7 +928,7 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
                                             n_out),
                 es._ell_spmm_plain(xin.double(), cols, vals.double(), win,
                                    win_off, n_out)))
-        csr = csr_tensor(CSRGraph.from_scipy(full[:, lo:hi].tocsr()), dev)
+        csr = CSRGraph.from_scipy(full[:, lo:hi].tocsr()).to_torch(dev)
         row = k1_use(f"freq-split {label} part {part.shape} k=32", part,
                      False, x[lo:hi].contiguous(), csr, launches,
                      "GCN v6 with freq_split, synth-arxiv, 5 steps",
@@ -1003,10 +966,9 @@ def ell_csr(a, t, device):
     real = vals != 0
     rows, cols, vals = rows[real], cols[real], vals[real]
     if t:
-        return csr_tensor(coo_to_csr(cols, rows, vals, (a.n_cols, a.n_rows)),
-                          device)
-    return csr_tensor(coo_to_csr(rows, cols, vals, (a.n_rows, a.n_cols)),
-                      device)
+        return coo_to_csr(cols, rows, vals,
+                          (a.n_cols, a.n_rows)).to_torch(device)
+    return coo_to_csr(rows, cols, vals, (a.n_rows, a.n_cols)).to_torch(device)
 
 
 def dist_launches(n_shards, widths, chunk, steps):
@@ -1321,12 +1283,12 @@ def sharded_k1_row(a, t, xk, label, launches, path, err):
 
     cols, vals, win, win_off, n_out, n_in = k1_arrays(a, t)
     k = xk.shape[1]
-    ms = time_chain(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
-                                          n_out), xk, n_in, 30)
-    plain_ms = time_chain(lambda _: es._ell_spmm_plain(
-        xk, cols, vals, win, win_off, n_out), xk, n_in, 3)
+    ms = chain_ms(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
+                                        n_out), xk, 30, n_in)
+    plain_ms = chain_ms(lambda _: es._ell_spmm_plain(
+        xk, cols, vals, win, win_off, n_out), xk, 3, n_in)
     csr = ell_csr(a, t, xk.device)
-    lib_ms = time_chain(lambda _: torch.sparse.mm(csr, xk), xk, n_in, 30)
+    lib_ms = chain_ms(lambda _: torch.sparse.mm(csr, xk), xk, 30, n_in)
     print(f"[K1 timing] {label}: K1 {ms:.4f} ms | plain {plain_ms:.4f} "
           f"ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
     bound_ms, bound_by = spmm_bound(a.nnz, win_off, n_in, n_out, k)
@@ -1884,14 +1846,14 @@ def orders_phase(dev, data):
                       es.ell_spmm(x, cols, vals, win, win_off, n_out),
                       es._ell_spmm_plain(x.double(), cols, vals.double(),
                                          win, win_off, n_out))
-        ms = time_chain(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
-                                              n_out), x, n_in, 30)
+        ms = chain_ms(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
+                                            n_out), x, 30, n_in)
         torch.cuda.synchronize()
         launches = read_launches()
-        plain_ms = time_chain(lambda v: es._ell_spmm_plain(
-            v, cols, vals, win, win_off, n_out), x, n_in, 3)
-        csr = csr_tensor(g, dev)
-        lib_ms = time_chain(lambda v: torch.sparse.mm(csr, v), x, n, 30)
+        plain_ms = chain_ms(lambda v: es._ell_spmm_plain(
+            v, cols, vals, win, win_off, n_out), x, 3, n_in)
+        csr = g.to_torch(dev)
+        lib_ms = chain_ms(lambda v: torch.sparse.mm(csr, v), x, 30, n)
         bound_ms, bound_by = k1_bound(adj, 32)
         print(f"[K1 timing] after {method}: K1 {ms:.4f} ms | plain "
               f"{plain_ms:.4f} ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms | "
@@ -2070,19 +2032,20 @@ def gcn_resume_phase(dev, data, uninterrupted):
 
 
 # captured against eager on the card: the same kernels in the same order
-# and the same capturable Adam, so they differ at most by the order of
-# index_add_'s atomic adds (the hub epilogue's): GCN losses at rtol 1e-5
-# and log-probs at rtol 1e-5 + atol 1e-4 (test_torch_port_model.py's);
-# HGNN's 200 epochs at the card-vs-CPU rtol 1e-4, logits rtol and atol
-# 1e-4 (test_torch_port_hgnn.py's)
+# and the same capturable Adam, and every sum in a fixed order (K1 and K2
+# by design, the hub fold in chunk order, ``ops/ell_spmm.py``), so the
+# GCN paths are held bit-equal (``exact``: losses and log-probs); HGNN's
+# 200 epochs keep the card-vs-CPU rtol 1e-4, logits rtol and atol 1e-4
+# (test_torch_port_hgnn.py's)
 CAPTURED_RTOL = 1e-5
 
 
 def captured_report(label, captured, eager, ms, rtol=CAPTURED_RTOL,
-                    atol=1e-4):
+                    atol=1e-4, exact=False):
     """Hold a captured fit's (losses, output) against the eager fit's
     from the same parameters and generator; print both flavors' median
-    step or epoch, ``ms`` = (captured, eager)."""
+    step or epoch, ``ms`` = (captured, eager). ``exact`` fails unless both
+    are bit-equal."""
     import torch
 
     bitwise = (captured[0] == eager[0] and torch.equal(captured[1],
@@ -2090,6 +2053,8 @@ def captured_report(label, captured, eager, ms, rtol=CAPTURED_RTOL,
     print(f"  {label}: median {ms[0]:.4f} ms captured against {ms[1]:.4f} "
           f"ms eager ({ms[1] / ms[0]:.2f}x); bit-equal: {bitwise}",
           flush=True)
+    if exact and not bitwise:
+        fail(f"{label}: the captured fit is not bit-equal to the eager one")
     check_close_losses(f"{label} captured vs eager losses", captured[0],
                        eager[0], rtol)
     compare(f"{label} captured vs eager output", captured[1], eager[1],
@@ -2142,7 +2107,7 @@ def captured_gcn_phase(dev, data, eager, panel):
     captured_report("main path step", (losses_of(cap), cap.output),
                     (losses_of(eager), eager.output),
                     (cap.timers("step").d.median_ms,
-                     eager.timers("step").d.median_ms))
+                     eager.timers("step").d.median_ms), exact=True)
     if not torch.equal(cap._rng_state, eager._rng_state):
         fail("the captured fit leaves another dropout stream")
     if abs(acc - acc_eager) > 2.0 / len(data.idx_test):
@@ -2177,7 +2142,7 @@ def captured_gcn_phase(dev, data, eager, panel):
     captured_report("panel path step", (losses_of(pres), pres.log_probs),
                     (losses_of(panel_eager), panel_eager.log_probs),
                     (pres.timers("step").d.median_ms,
-                     panel_eager.timers("step").d.median_ms))
+                     panel_eager.timers("step").d.median_ms), exact=True)
     if not torch.equal(pres.rng_state, panel_eager.rng_state):
         fail("the captured panel fit leaves another dropout stream")
     _, precords = kernel_records(panel_path, "panel_spmm")
@@ -2191,6 +2156,156 @@ def captured_gcn_phase(dev, data, eager, panel):
         fail(f"captured panel path: K2 {phost} host calls, {precords} "
              f"records, K1 {k1_host}")
     return {"main": (records, host), "panel": (precords, phost)}
+
+
+def index_add_fold(out_virt, adj):
+    """The hub fold as the port had it before its fixed order: an
+    ``index_add_`` over ``virt_map`` (atomic adds on the card), the
+    baseline of the [hub fold] phase."""
+    import torch
+
+    n_virt_hub = adj.virt_map.shape[0]
+    hub = out_virt.new_zeros((adj.n_hub, out_virt.shape[1]))
+    hub.index_add_(0, adj.virt_map, out_virt[:n_virt_hub])
+    rest = out_virt[n_virt_hub:n_virt_hub + (adj.n_rows - adj.n_hub)]
+    return torch.cat([hub, rest], dim=0)
+
+
+def hub_fold_phase(dev, adj, x, ct):
+    """[hub fold] on the main path's layout (synth-arxiv, k_pad 32) at
+    k=32: two calls of ``spmm_ell`` bit-equal forward and dX; the fold
+    (``ops/ell_spmm.py::_hub_epilogue``) against the former ``index_add_``
+    fold at rtol 1e-6 (f32 reassociation); both folds' device ms on K1's
+    output. Returns (fold ms, index_add_ fold ms)."""
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.utils.chain_timing import device_ms
+
+    print(f"[hub fold] synth-arxiv k=32: {adj.n_hub} hub rows in "
+          f"{adj.virt_map.numel()} chunks, {len(adj.hub_steps)} steps "
+          f"(the largest chunk count), {adj.hub_idx.numel()} rows read",
+          flush=True)
+
+    def forward_and_dx():
+        xg = x.clone().requires_grad_(True)
+        out = es.spmm_ell(adj, xg)
+        out.backward(ct)
+        return torch.cat([out.detach(), xg.grad])
+
+    check_repeat("spmm_ell forward and dX (K1 + the hub fold)",
+                 forward_and_dx)
+    with torch.no_grad():
+        virt = es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
+                           adj.row_space)
+        # the fold writes its sums over K1's output: a copy each
+        compare("fold vs the index_add_ fold",
+                es._hub_epilogue(virt.clone(), adj),
+                index_add_fold(virt, adj), rtol=1e-6)
+        atomic_same = torch.equal(index_add_fold(virt, adj),
+                                  index_add_fold(virt, adj))
+        # the fold's work does not depend on the values it overwrites
+        scratch = virt.clone()
+        fold_ms = device_ms(lambda: es._hub_epilogue(scratch, adj), 30)
+        old_ms = device_ms(lambda: index_add_fold(virt, adj), 30)
+    print(f"  the index_add_ fold's two calls bit-equal: {atomic_same} "
+          f"(atomic adds); fold {fold_ms:.4f} ms against the index_add_ "
+          f"fold's {old_ms:.4f} ms (device ms, median of 30 behind a spin "
+          f"kernel)", flush=True)
+    return fold_ms, old_ms
+
+
+WIDE_HIDDENS = (64, 128)    # GCN picks k_pad 64 and 128 at synth-arxiv
+
+
+def wide_kpad_phase(dev, g, data):
+    """[wide k_pad]: the layouts ``GCN`` builds at hidden 64 (k_pad 64,
+    P=2) and 128 (k_pad 128, P=1) on synth-arxiv (rabbit, degree sort, the
+    training default's hub split): K1 against its float64 plain version
+    at the widths their fits launch (the hoist at k = k_pad, layer 2 at
+    k=40), a 20-step v6 fit in both loop flavors (eager: the host counter;
+    captured: kernel records under torch.profiler, bit-equal to eager), and
+    K1's time at each width beside its bound and ``torch.sparse.mm``.
+    Returns the ``kernels`` rows."""
+    import torch
+
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+    from gcn_tpu_torch.train.capture import WARMUP
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nfeat, ncls = data.num_features, data.num_classes
+    csr = g.to_torch(dev)
+    rows = []
+    for hidden in WIDE_HIDDENS:
+        kp = hidden
+        adj = ell_adjacency(g, k_pad=kp, symmetric=True, device=dev)
+        print(f"[wide k_pad] k_pad {kp} (P={adj.p}): slots "
+              f"{adj.cols.numel()} pad {adj.pad_fraction:.3f} n_hub "
+              f"{adj.n_hub} fold steps {len(adj.hub_steps)} max blocks a "
+              f"window {int(adj.win_off.diff().max())}", flush=True)
+        xs = {k: torch.randn(g.shape[0], k, device=dev, generator=gen)
+              for k in (kp, 40)}
+        errs = {}
+        for k, x in xs.items():
+            errs[k] = compare(
+                f"K1 k_pad {kp} fwd k={k}",
+                es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
+                            adj.row_space),
+                es._ell_spmm_plain(x.double(), adj.cols, adj.vals.double(),
+                                   adj.win, adj.win_off, adj.row_space))
+        steps = 20
+        hoist = -(-nfeat // kp)
+        expected = hoist + 2 * steps + 1
+
+        def fit(jit_loop):
+            m = GCN(nfeat, hidden, ncls, variant="v6", seed=SEED,
+                    device=dev)
+            m.fit(data.features, data.adj, data.labels, data.idx_train,
+                  train_iters=steps, jit_loop=jit_loop)
+            return m
+
+        reset_launches()
+        eager = fit(False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if eager.adj_norm.k_pad != kp:
+            fail(f"GCN at hidden {hidden} built k_pad "
+                 f"{eager.adj_norm.k_pad}, not {kp}")
+        reset_launches()
+        cap = fit(True)
+        torch.cuda.synchronize()
+        host = read_launches()[0]
+        _, records = kernel_records(lambda: fit(True), "ell_spmm")
+        print(f"  hidden {hidden}: K1 launches {launches[0]} eager "
+              f"{launches[1]} (expected {expected} = {hoist} hoist + 2 x "
+              f"{steps} + 1); captured {records} kernel records, {host} "
+              f"host calls (expected {hoist + 2 * (WARMUP + 1) + 1}); loss "
+              f"{losses_of(eager)[0]:.4f} -> {losses_of(eager)[-1]:.4f}, "
+              f"test accuracy {eager.test(data.idx_test, verbose=False):.4f}",
+              flush=True)
+        if (launches[0] != expected or records != expected
+                or host != hoist + 2 * (WARMUP + 1) + 1):
+            fail(f"hidden {hidden}: K1 launches {launches}, records "
+                 f"{records}, host calls {host}")
+        if not losses_of(eager)[-1] < losses_of(eager)[0]:
+            fail(f"hidden {hidden}: the loss did not fall")
+        captured_report(f"hidden {hidden} step",
+                        (losses_of(cap), cap.output),
+                        (losses_of(eager), eager.output),
+                        (cap.timers("step").d.median_ms,
+                         eager.timers("step").d.median_ms), exact=True)
+        for k, x in xs.items():
+            use = "the layer-1 hoist" if k == kp else "layer 2, fwd and dX"
+            row = k1_use(f"k_pad {kp}, k={k} ({use})", adj, False, x, csr,
+                         launches, f"GCN v6 hidden {hidden}, {steps} "
+                         f"steps (eager)", K1_REPLACES)
+            row.update(max_abs_err=errs[k], k_pad=kp, p=adj.p,
+                       captured_launches=records)
+            rows.append(row)
+        del adj
+    return rows
 
 
 def main():
@@ -2300,8 +2415,7 @@ def main():
                         exact(adj, feats)))
     errs.append(compare("arxiv hoist k=128 (4 tiles)",
                         hoist_spmm(adj, feats),
-                        es._hub_epilogue(exact(adj, feats), adj.virt_map,
-                                         adj.n_hub, n)))
+                        es._hub_epilogue(exact(adj, feats), adj)))
     ct = torch.randn(n, 32, device=dev, generator=gen)
     errs.append(compare("arxiv bwd (transpose arrays)", k1(adj, ct, True),
                         exact(adj, ct, True)))
@@ -2370,19 +2484,19 @@ def main():
 
     # ---- 4. K1 timing at the main path's shape ---------------------------
     print("[K1 timing] synth-arxiv forward, k=32", flush=True)
-    k1_ms = time_chain(lambda x: k1(adj, x), x32, n, 30)
-    plain_ms = time_chain(lambda x: plain(adj, x), x32, n, 5)
-    csr = csr_tensor(g, dev)
-    lib_ms = time_chain(lambda x: torch.sparse.mm(csr, x), x32, n, 30)
-    lib_diff = (es._hub_epilogue(k1(adj, x32), adj.virt_map, adj.n_hub, n)
+    k1_ms = chain_ms(lambda x: k1(adj, x), x32, 30, n)
+    plain_ms = chain_ms(lambda x: plain(adj, x), x32, 5, n)
+    csr = g.to_torch(dev)
+    lib_ms = chain_ms(lambda x: torch.sparse.mm(csr, x), x32, 30, n)
+    lib_diff = (es._hub_epilogue(k1(adj, x32), adj)
                 - torch.sparse.mm(csr, x32)).abs().max().item()
     print(f"  torch.sparse.mm vs K1 + epilogue: max abs diff {lib_diff:.3e}")
     bf16_ms = {}
     for option in ("table_bf16", "products_bf16"):
         o = {option: True}
         bf16_ms[option] = (
-            time_chain(lambda x: k1(adj, x, **o), x32, n, 30),
-            time_chain(lambda x: plain(adj, x, **o), x32, n, 5))
+            chain_ms(lambda x: k1(adj, x, **o), x32, 30, n),
+            chain_ms(lambda x: plain(adj, x, **o), x32, 5, n))
     print(f"  K1 {k1_ms:.4f} ms | plain {plain_ms:.4f} ms | "
           f"torch.sparse.mm (CSR) {lib_ms:.4f} ms", flush=True)
     for option, (ms, pms) in bf16_ms.items():
@@ -2392,6 +2506,7 @@ def main():
     bound_ms, bound_by = k1_bound(adj, 32)
     print(f"  K1 at {100 * bound_ms / k1_ms:.1f}% of the bound "
           f"(by {bound_by})", flush=True)
+    fold_ms = hub_fold_phase(dev, adj, x32, ct)
 
     # ---- 5. K2 against its plain version, against K1, and its time -------
     t0 = time.time()
@@ -2482,13 +2597,12 @@ def main():
     check_repeat("K2", lambda: k2(padj, x32))
     print("[K2 vs K1] synth-arxiv, same graph and x", flush=True)
     errs2.append(compare("K2 vs K1 + hub epilogue, k=32", k2(padj, x32),
-                         es._hub_epilogue(k1(adj, x32), adj.virt_map,
-                                          adj.n_hub, n)))
+                         es._hub_epilogue(k1(adj, x32), adj)))
     torch.cuda.synchronize()
     max_abs_err2 = max(errs2)
     print("[K2 timing] synth-arxiv forward, k=32", flush=True)
-    k2_ms = time_chain(lambda x: k2(padj, x), x32, n, 30)
-    plain2_ms = time_chain(lambda x: plain2(padj, x), x32, n, 5)
+    k2_ms = chain_ms(lambda x: k2(padj, x), x32, 30, n)
+    plain2_ms = chain_ms(lambda x: plain2(padj, x), x32, 5, n)
 
     def k2_split_ms(a):
         """K2's heavy-window launch and its light one, each alone (the
@@ -2499,10 +2613,10 @@ def main():
             return ps._panel_spmm_kernel(x, a.cols, a.vals, a.local_row,
                                          a.win_off, a.r, n, plan)
 
-        return (time_chain(lambda x: launch(x, (heavy, parts, light[:0])),
-                           x32, n, 30),
-                time_chain(lambda x: launch(x, (heavy[:0], parts[:0], light)),
-                           x32, n, 30))
+        return (chain_ms(lambda x: launch(x, (heavy, parts, light[:0])),
+                         x32, 30, n),
+                chain_ms(lambda x: launch(x, (heavy[:0], parts[:0], light)),
+                         x32, 30, n))
 
     heavy_ms, light_ms = k2_split_ms(padj)
     print(f"  K2 {k2_ms:.4f} ms: heavy-window launch {heavy_ms:.4f} ms "
@@ -2647,6 +2761,8 @@ def main():
         dev, data, model, (lambda: hoist_spmm(padj, feats), padj, labels,
                            idx_train, init, panel_eager))
 
+    wide_rows = wide_kpad_phase(dev, g, data)
+
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
 
@@ -2681,6 +2797,8 @@ def main():
         "products_bf16_launches": bf16_launches["products_bf16"],
         "captured_launches": captured["main"][0],
         "captured_host_calls": captured["main"][1],
+        "hub_fold_ms": fold_ms[0],
+        "index_add_fold_ms": fold_ms[1],
     }, {
         "name": "panel_spmm",
         "route": "cuda",
@@ -2698,7 +2816,7 @@ def main():
         "heavy_windows": padj.heavy.numel(),
         "captured_launches": captured["panel"][0],
         "captured_host_calls": captured["panel"][1],
-    }] + hgnn_rows + freq_rows + dist_rows + order_rows}))
+    }] + wide_rows + hgnn_rows + freq_rows + dist_rows + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

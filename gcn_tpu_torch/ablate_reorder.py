@@ -32,7 +32,7 @@ def spmm_ms(adj, x, device):
 
     with torch.no_grad():
         if device.type == "cuda":
-            from gcn_tpu_torch.time_sharded import device_ms
+            from gcn_tpu_torch.utils.chain_timing import device_ms
 
             return device_ms(lambda: spmm_ell(adj, x), 30)
         times = []

@@ -73,6 +73,17 @@ class CSRGraph:
         return sp.csr_matrix((self.data, self.indices, self.indptr),
                              shape=self.shape)
 
+    def to_torch(self, device=None):
+        """This matrix as a torch sparse CSR tensor on ``device``: the
+        operand of ``torch.sparse.mm``, the SpMM kernels' library
+        yardstick."""
+        import torch
+
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(self.indptr, dtype=torch.int64),
+            torch.as_tensor(self.indices, dtype=torch.int64),
+            torch.as_tensor(self.data), size=self.shape, device=device)
+
     def to_dense(self) -> np.ndarray:
         out = np.zeros(self.shape, dtype=np.float32)
         rows, cols, vals = self.to_coo()

@@ -22,8 +22,8 @@ into zero-padded rows first (``_align.aligned_rows``).
 
 ``spmm_ell(adj, x)`` is the differentiable entry (``_SpmmEll``): the forward
 runs K1 on the forward arrays then ``_hub_epilogue`` (fold the virtual hub
-rows back into real rows); the backward runs K1 on the transpose arrays
-then ``_hub_epilogue`` over ``t_virt_map`` (``gcn_tpu``
+rows back into real rows, in a fixed order); the backward runs K1 on the
+transpose arrays then ``_hub_epilogue`` over ``t_virt_map`` (``gcn_tpu``
 ``ell_spmm.py:362-368``). The edge-weight cotangent (``_ell_sddmm``) is
 computed only when autograd asks for it: ``gcn_tpu`` relied on XLA
 dead-code elimination for that, and torch has none.
@@ -147,17 +147,42 @@ def ell_spmm(x, cols, vals, win, win_off, n_out, *, table_bf16=False,
     return _ell_spmm_plain(x, cols, vals, win, win_off, n_out, products_bf16)
 
 
-def _hub_epilogue(out_virt, virt_map, n_hub, n_real):
-    """Fold virtual hub-chunk rows back into real rows: an ``index_add_``
-    over ``virt_map`` (XLA's segment_sum in gcn_tpu) plus an identity
-    tail."""
+def _hub_epilogue(out_virt, adj, t=False):
+    """Fold virtual hub-chunk rows back into real rows (gcn_tpu's sorted
+    ``segment_sum`` over ``virt_map``) plus an identity tail; ``t`` folds
+    the transpose's (``t_virt_map``).
+
+    The fold follows ``adj.hub_steps`` (``tile.ell.hub_fold_plan``): one
+    gather of the chunks the steps read (with a zero row appended when the
+    plan reads one), then one add a step, so each hub adds its chunks in
+    chunk order, ``((0 + c0) + c1) + ...``. Its result does not depend on
+    the device's scheduling (``index_add_`` adds with atomics on CUDA, in
+    an order that changes from run to run), equals ``index_add_``'s on the
+    CPU bit for bit, and it has no host synchronisation or data-dependent
+    shape, so it runs inside a captured CUDA graph. The hub sums are
+    written over the last ``n_hub`` chunk rows of ``out_virt`` (read
+    before, by the gather), so the result is a view of ``out_virt`` that
+    ends in its identity tail, with no copy of that tail."""
+    n_hub, virt_map = (adj.t_n_hub, adj.t_virt_map) if t else (
+        adj.n_hub, adj.virt_map)
     if n_hub == 0:
         return out_virt
+    idx, steps = (adj.t_hub_idx, adj.t_hub_steps) if t else (
+        adj.hub_idx, adj.hub_steps)
+    n_real = adj.n_cols if t else adj.n_rows
     n_virt_hub = virt_map.shape[0]
-    hub = out_virt.new_zeros((n_hub, out_virt.shape[1]))
-    hub.index_add_(0, virt_map, out_virt[:n_virt_hub])
-    rest = out_virt[n_virt_hub:n_virt_hub + (n_real - n_hub)]
-    return torch.cat([hub, rest], dim=0)
+    chunks = out_virt[:n_virt_hub]
+    if sum(steps) > n_virt_hub:       # some step reads the zero row
+        chunks = torch.nn.functional.pad(chunks, (0, 0, 0, 1))
+    parts = chunks.index_select(0, idx)
+    first = n_virt_hub - n_hub
+    hub = out_virt[first:n_virt_hub]
+    torch.add(parts[:n_hub], 0.0, out=hub)
+    at = n_hub
+    for h in steps[1:]:
+        hub[:h] += parts[at:at + h]
+        at += h
+    return out_virt[first:first + n_real]
 
 
 def _ell_sddmm(cols, vals, win, g, x, r, n_rows):
@@ -182,7 +207,7 @@ class _SpmmEll(torch.autograd.Function):
         out = ell_spmm(x, adj.cols, vals, adj.win, adj.win_off,
                        adj.row_space, table_bf16=adj.table_bf16,
                        products_bf16=adj.products_bf16)
-        return _hub_epilogue(out, adj.virt_map, adj.n_hub, adj.n_rows)
+        return _hub_epilogue(out, adj)
 
     @staticmethod
     def backward(ctx, g):
@@ -195,7 +220,7 @@ class _SpmmEll(torch.autograd.Function):
                           adj.t_win_off, adj.t_row_space,
                           table_bf16=adj.table_bf16,
                           products_bf16=adj.products_bf16)
-            dx = _hub_epilogue(dx, adj.t_virt_map, adj.t_n_hub, adj.n_cols)
+            dx = _hub_epilogue(dx, adj, t=True)
         if ctx.needs_input_grad[1]:
             if adj.n_hub:
                 # SDDMM rows live in the VIRTUAL row space: expand g

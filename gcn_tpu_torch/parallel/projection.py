@@ -628,9 +628,11 @@ def recommend_wire_dtype(sg, plan, *, widths=None,
     Every input is host data of the plan and the capture, the same on
     every rank, so every process of a run resolves the same wire.
 
-    Accuracy basis: the port's fp8 wire on the H100 (PERF.md section 6:
-    the sharded step's 5 steps on synth-arxiv within rtol 0.05 of f32, and
-    finite with the features scaled by 1e4).
+    Accuracy basis: the port's fp8 wire trained to the end on the H100,
+    three seeds a wire, against the f32 and bf16 wires
+    (``gcn_tpu_torch/results/fp8_wire_eval.json``, written by
+    ``python -m gcn_tpu_torch.bench_fp8_wire``: synth-pubmed, 8 bands, the
+    ragged and the 2 x 4 hierarchical exchange, 60 iterations).
     """
     if not hasattr(plan, "inter_sizes"):
         return "bf16", dict(reason="single-level exchange: no DCN tier, "

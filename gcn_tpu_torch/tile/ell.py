@@ -36,7 +36,7 @@ DEFAULT_K_PAD = 32   # feature lanes per slot; P = 128 // k_pad slots/row
 DEFAULT_CHUNK_SLOTS = 8_000_000
 
 _TENSORS = ("cols", "vals", "win", "win_off", "t_cols", "t_vals", "t_win",
-            "t_win_off", "virt_map", "t_virt_map")
+            "t_win_off", "virt_map", "t_virt_map", "hub_idx", "t_hub_idx")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +48,10 @@ class EllAdj:
     visited; ``win_off`` int32 (num_windows + 1,) the first block of each
     window. ``t_*`` mirror them for A^T (backward dX), aliased when
     symmetric. ``virt_map`` (int32, real row of each virtual hub row) is
-    None when no hub row was split. ``tiler`` / ``t_tiler``: the host route
-    that laid out each direction (``tile_route``).
+    None when no hub row was split; ``hub_idx`` / ``hub_steps`` are the
+    same split as the fold's fixed-order plan (``hub_fold_plan``).
+    ``tiler`` / ``t_tiler``: the host route that laid out each direction
+    (``tile_route``).
     """
 
     cols: torch.Tensor
@@ -81,6 +83,10 @@ class EllAdj:
     t_n_hub: int = 0
     tiler: str = "numpy"
     t_tiler: str = "numpy"
+    hub_idx: Optional[torch.Tensor] = None
+    t_hub_idx: Optional[torch.Tensor] = None
+    hub_steps: tuple = ()
+    t_hub_steps: tuple = ()
 
     @property
     def p(self) -> int:
@@ -160,12 +166,13 @@ class EllAdj:
                 assert (win_h[b0:b1] == np.repeat(
                     np.arange(ws, we), pw)).all(), \
                     f"{name}: span/window mismatch"
-        for name, vm, n_hub, n_virt, n_real in (
-                ("fwd", self.virt_map, self.n_hub, self.n_virt, self.n_rows),
+        for name, vm, n_hub, n_virt, n_real, idx, steps in (
+                ("fwd", self.virt_map, self.n_hub, self.n_virt, self.n_rows,
+                 self.hub_idx, self.hub_steps),
                 ("bwd", self.t_virt_map, self.t_n_hub, self.t_n_virt,
-                 self.n_cols)):
+                 self.n_cols, self.t_hub_idx, self.t_hub_steps)):
             if n_hub == 0:
-                assert vm is None, name
+                assert vm is None and idx is None and steps == (), name
                 continue
             vm_h = vm.cpu().numpy()
             assert (np.diff(vm_h) >= 0).all(), \
@@ -174,6 +181,10 @@ class EllAdj:
                 f"{name}: virt_map must cover every hub row"
             assert n_virt == len(vm_h) + (n_real - n_hub), \
                 f"{name}: virtual row count mismatch"
+            want_idx, want_steps = hub_fold_plan(vm_h)
+            assert steps == want_steps and np.array_equal(
+                idx.cpu().numpy(), want_idx), \
+                f"{name}: hub fold plan disagrees with virt_map"
 
 
 def degree_sort_order(g: CSRGraph) -> np.ndarray:
@@ -227,6 +238,32 @@ def _split_hub_rows(indptr: np.ndarray, cap: int):
         np.zeros(1, dtype=np.int64), ends,
         indptr[n_hub + 1:].astype(np.int64)])
     return virt_indptr, virt_map, n_hub, n_virt_hub + (n - n_hub)
+
+
+def hub_fold_plan(virt_map: np.ndarray):
+    """The hub fold's fixed-order plan: ``(idx, steps)``.
+
+    ``virt_map`` (nondecreasing) gives hub h its chunks, the virtual rows
+    ``first[h] .. first[h] + m[h] - 1``. Step c adds chunk c of the first
+    ``steps[c]`` hubs into their sums, so each hub's chunks add in chunk
+    order, ``((0 + c0) + c1) + ...``, in ``len(steps)`` steps (the largest
+    chunk count) whatever the data. ``idx`` (int64) lists the virtual rows
+    the steps read, step after step: the (n_hub, max_chunks) chunk table's
+    columns, each cut to ``steps[c]`` rows, ``steps[c]`` being one past the
+    last hub with more than c chunks. A hub before that with fewer chunks
+    reads row ``len(virt_map)``: the fold's zero row, so the add is exact.
+    """
+    vm = np.asarray(virt_map, dtype=np.int64)
+    if (np.diff(vm) < 0).any():
+        raise ValueError("virt_map must be nondecreasing")
+    m = np.bincount(vm)
+    first = np.concatenate([[0], np.cumsum(m)[:-1]])
+    idx, steps = [], []
+    for c in range(int(m.max())):
+        h = int(np.flatnonzero(m > c)[-1]) + 1
+        idx.append(np.where(m[:h] > c, first[:h] + c, len(vm)))
+        steps.append(h)
+    return np.concatenate(idx).astype(np.int64), tuple(steps)
 
 
 def _window_passes(indptr: np.ndarray, n: int, r: int, p: int) -> np.ndarray:
@@ -408,8 +445,10 @@ def _direction(g: CSRGraph, cap: int, hub_split: bool, r: int, p: int,
     """Tile one direction: numpy arrays + metadata."""
     n = g.shape[0]
     split = _split_hub_rows(g.indptr, cap) if hub_split else None
+    hub_idx, hub_steps = None, ()
     if split is not None:
         indptr, virt_map, n_hub, n_virt = split
+        hub_idx, hub_steps = hub_fold_plan(virt_map)
     else:
         indptr, virt_map, n_hub, n_virt = g.indptr, None, 0, 0
     cols, vals, win, off, route = _tile(
@@ -419,7 +458,8 @@ def _direction(g: CSRGraph, cap: int, hub_split: bool, r: int, p: int,
                 win_off=_win_offsets(win, len(off) - 1),
                 chunks=_chunk_plan(off, p, r, chunk_slots),
                 spans=_guard_spans(_span_plan(off), span_pass_limit),
-                virt_map=virt_map, n_hub=n_hub, n_virt=n_virt)
+                virt_map=virt_map, n_hub=n_hub, n_virt=n_virt,
+                hub_idx=hub_idx, hub_steps=hub_steps)
 
 
 def ell_adjacency(
@@ -482,11 +522,9 @@ def ell_adjacency(
     def dev(a):
         return None if a is None else torch.from_numpy(a).to(device)
 
-    arrays = {key: dev(fwd[key])
-              for key in ("cols", "vals", "win", "win_off", "virt_map")}
-    t_arrays = arrays if symmetric else {
-        key: dev(bwd[key])
-        for key in ("cols", "vals", "win", "win_off", "virt_map")}
+    keys = ("cols", "vals", "win", "win_off", "virt_map", "hub_idx")
+    arrays = {key: dev(fwd[key]) for key in keys}
+    t_arrays = arrays if symmetric else {key: dev(bwd[key]) for key in keys}
     return EllAdj(
         cols=arrays["cols"], vals=arrays["vals"], win=arrays["win"],
         win_off=arrays["win_off"],
@@ -501,4 +539,6 @@ def ell_adjacency(
         n_virt=fwd["n_virt"], n_hub=fwd["n_hub"],
         t_n_virt=bwd["n_virt"], t_n_hub=bwd["n_hub"],
         tiler=fwd["tiler"], t_tiler=bwd["tiler"],
+        hub_idx=arrays["hub_idx"], t_hub_idx=t_arrays["hub_idx"],
+        hub_steps=fwd["hub_steps"], t_hub_steps=bwd["hub_steps"],
     )

@@ -17,7 +17,7 @@ CUDA events around every call, under two chains:
     call shorter than its wrapper's Python time reads the host's pace;
   * ``device``: the chain is queued behind a ~0.1 s spin kernel, so the
     host is done enqueueing before the card reaches it and the events read
-    device time (``chip_smoke.py::time_chain``).
+    device time (``utils/chain_timing.py::chain_ms``).
 
 K1 is called through ``ell_spmm`` on the forward arrays, K2 through
 ``spmm_panel`` (its differentiable entry, under ``no_grad``), whose
@@ -36,9 +36,9 @@ on the same CSR. Prints one line per layout, then the card's name and power
 limit.
 """
 
+import importlib.util
 import json
 import os
-import statistics
 import subprocess
 import sys
 
@@ -46,26 +46,19 @@ SEED = 15
 REPS = 30
 
 
-def chain(fn, x, reps, spin):
-    """Median ms per call of ``reps`` chained calls (``spin``: queued
-    behind a ~0.1 s spin kernel)."""
-    import torch
+def _chain_timing():
+    """This file's own ``utils/chain_timing.py``: a ROOT's package may
+    predate it, and every ROOT is timed by the same method."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "utils",
+                        "chain_timing.py")
+    spec = importlib.util.spec_from_file_location("_chain_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    for _ in range(3):
-        fn(x)
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    if spin:
-        torch.cuda._sleep(200_000_000)
-    cur = x
-    for start, end in events:
-        start.record()
-        out = fn(cur)
-        end.record()
-        cur = out[:x.shape[0]]
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+_timing = _chain_timing()
+chain_ms, smi_line = _timing.chain_ms, _timing.smi_line
 
 
 def time_root(root):
@@ -110,8 +103,8 @@ def time_root(root):
     result = {"root": root, "host_ms": {}, "device_ms": {}}
     with torch.no_grad():
         for name, fn in kernels.items():
-            result["host_ms"][name] = chain(fn, x, REPS, spin=False)
-            result["device_ms"][name] = chain(fn, x, REPS, spin=True)
+            result["host_ms"][name] = chain_ms(fn, x, REPS, spin=False)
+            result["device_ms"][name] = chain_ms(fn, x, REPS)
     print(json.dumps(result), flush=True)
 
 
@@ -137,20 +130,17 @@ def hgnn_layouts():
     n = g.shape[0]
     x = torch.randn(n, 128, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(SEED))
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(g.indptr, dtype=torch.int64),
-        torch.as_tensor(g.indices, dtype=torch.int64),
-        torch.as_tensor(g.data), size=g.shape, device=dev)
+    csr = g.to_torch(dev)
     print(f"HGNN G, n={n} nnz={g.nnz}, k=128: torch.sparse.mm (CSR) "
-          f"{chain(lambda v: torch.sparse.mm(csr, v), x, REPS, True):.4f} "
+          f"{chain_ms(lambda v: torch.sparse.mm(csr, v), x, REPS):.4f} "
           f"ms", flush=True)
     for label, graph, k_pad in (("as HGNN lowers it", g, 128),
                                 ("degree-sorted", gs, 128),
                                 ("degree-sorted, k_pad 32", gs, 32)):
         a = ell_adjacency(graph, k_pad=k_pad, device=dev)
-        ms = chain(lambda v: es.ell_spmm(v, a.cols, a.vals, a.win,
-                                         a.win_off, a.row_space),
-                   x, REPS, True)
+        ms = chain_ms(lambda v: es.ell_spmm(v, a.cols, a.vals, a.win,
+                                            a.win_off, a.row_space),
+                      x, REPS)
         print(f"  {label}: P={a.p} slots={a.cols.numel()} pad="
               f"{a.pad_fraction:.3f} max blocks/window="
               f"{int(a.win_off.diff().max())} n_hub={a.n_hub}: K1 "
@@ -176,10 +166,7 @@ def main(argv):
         for root in argv:
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--one", root], check=True, timeout=900)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip())
+    print(smi_line())
     return 0
 
 

@@ -33,7 +33,8 @@ import statistics
 import sys
 import time
 
-from gcn_tpu_torch.time_sharded import CAPTURE, SEED, smi_line
+from gcn_tpu_torch.time_sharded import CAPTURE, SEED
+from gcn_tpu_torch.utils.chain_timing import smi_line
 
 
 def time_exchange(plan, mesh, rows, width, reps):

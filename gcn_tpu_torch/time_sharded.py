@@ -24,8 +24,8 @@ process on the card. The graph (synth-arxiv, seed 15) goes through
     40 (the projection's ``nodes_per_device`` and widths).
 
 Every time is the median ms of ``--reps`` calls queued behind a ~0.1 s spin
-kernel (CUDA events around each call), as ``chip_smoke.py::time_chain``
-times. A rate over edges counts the stored edges (not padding slots); a
+kernel, CUDA events around each call (``utils/chain_timing.py::device_ms``).
+A rate over edges counts the stored edges (not padding slots); a
 layout's cost over the plain K1 is the plain rate over the layout's
 (``blocks_over_plain``: every band's two parts summed; ``sharded_over_plain``:
 the monolithic layout's). The results merge into the capture (``-o``),
@@ -37,10 +37,10 @@ name and power limit.
 import argparse
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
+
+from gcn_tpu_torch.utils.chain_timing import device_ms, smi_line
 
 SEED = 15
 CAPTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -52,35 +52,6 @@ MATMUL_SHAPES = tuple(s for fin, fout in ((128, 128), (128, 40))
                       for s in ((MATMUL_ROWS, fin, fout),
                                 (MATMUL_ROWS, fout, fin),
                                 (fin, MATMUL_ROWS, fout)))
-
-
-def smi_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-
-
-def device_ms(fn, reps):
-    """Median ms of ``reps`` calls of ``fn()`` queued behind a ~0.1 s spin
-    kernel, so that the events read the device's time, not the host's.
-    Each call reads the same inputs (a part's output is shorter than its
-    input, so calls cannot chain as ``time_kernels.chain``'s do)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(200_000_000)
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def matmul_rate(device, reps=30, shapes=MATMUL_SHAPES):

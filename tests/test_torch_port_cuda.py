@@ -821,12 +821,11 @@ def test_sharded_flavors_on_card_match_cpu(cuda, flavor, launches):
 #
 # Captured against eager on the card, from the same parameters and the
 # same dropout generator. The two flavors run the same kernels in the same
-# order and the same capturable Adam; what can differ is the order of the
-# atomic adds of ``index_add_`` (the hub epilogue of K1's layout and the
-# gathers' backward), which CUDA does not fix from run to run. Hence
-# losses at rtol 1e-5 and log-probs at rtol 1e-5 + atol 1e-5, while the
-# record (history length, best_iter, iters_run) and the generator's state
-# are equal.
+# order and the same capturable Adam, and every sum of the step is taken
+# in a fixed order: K1 and K2 by design, the hub fold of K1's layout in
+# chunk order (``ops/ell_spmm.py::_hub_epilogue``). So the record (history
+# length, best_iter, iters_run), the losses, the log-probs and the
+# generator's state are bit-equal.
 
 
 def _kernel_records(fn, needle):
@@ -876,13 +875,8 @@ def _same_fit(got, want):
     assert len(got.history) == len(want.history)
     assert got.iters_run == want.iters_run
     assert got.best_iter == want.best_iter
-    for key in want.history[0]:
-        if key != "iter":
-            np.testing.assert_allclose([h[key] for h in got.history],
-                                       [h[key] for h in want.history],
-                                       rtol=1e-5)
-    torch.testing.assert_close(got.log_probs, want.log_probs, rtol=1e-5,
-                               atol=1e-5)
+    assert got.history == want.history
+    assert torch.equal(got.log_probs, want.log_probs)
     assert torch.equal(got.rng_state, want.rng_state)
 
 
@@ -1102,3 +1096,53 @@ def test_model_axis_step_on_card_matches_cpu(cuda, flavor, parts):
             torch.testing.assert_close(p_card[layer][k].cpu(),
                                        p_cpu[layer][k], rtol=1e-5,
                                        atol=1e-6)
+
+
+# ---- the hub fold in chunk order, and K1 at P = 2 ----------------------
+
+
+@pytest.mark.cuda
+def test_hub_fold_deterministic_on_card(cuda):
+    """``spmm_ell`` through the hub fold: two calls bit-equal forward and
+    dX on the card, and the fold of the same K1 output bit-equal on the
+    card and on the CPU (the same adds in the same order)."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
+    assert adj.n_hub > 0 and len(adj.hub_steps) > 2
+    x = torch.randn(g.shape[0], 24, device=cuda)
+    ct = torch.randn(g.shape[0], 24, device=cuda)
+
+    def run():
+        xg = x.clone().requires_grad_(True)
+        out = es.spmm_ell(adj, xg)
+        out.backward(ct)
+        return out.detach(), xg.grad
+
+    (o1, d1), (o2, d2) = run(), run()
+    assert torch.equal(o1, o2) and torch.equal(d1, d2)
+    virt = es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
+                       adj.row_space)
+    on_cpu = es._hub_epilogue(virt.cpu(), adj.to("cpu"))
+    assert torch.equal(es._hub_epilogue(virt, adj).cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 40, 1, 96])
+def test_kernel_on_k_pad_64_layout_on_card(cuda, k):
+    """K1 on a P = 2 layout (k_pad 64: GCN at hidden 64), with the hub
+    split, forward and through the transpose arrays, against the plain
+    version: the hoist's width, layer 2's, the narrowest and a width of
+    three column tiles."""
+    g = _hub_graph()
+    adj = ell_adjacency(g, r=8, k_pad=64, device=cuda)
+    assert adj.p == 2 and adj.n_hub > 0
+    for t in (False, True):
+        arrays = _ell_arrays(adj, t)
+        x = torch.randn(g.shape[0], k, device=cuda)
+        before = es.spmm_ell_launches
+        got = es.ell_spmm(x, *arrays)
+        torch.cuda.synchronize()
+        assert es.spmm_ell_launches == before + 1
+        _close(got, es._ell_spmm_plain(x.double(), arrays[0],
+                                       arrays[1].double(),
+                                       *arrays[2:]).float())

@@ -6,8 +6,9 @@ CSV dumps, row analysis, artifacts, profiling), reorders by gorder and
 profiles a fitted model's ops, takes a step on a 2 x 2 mesh with a model
 axis, tiles with the native tiler and runs the rest of CSRGraph, imports
 the projection, the measurement and host scripts and the lazy top-level
-names, projects a full step and takes a step with the auto wire, with jax
-and gcn_tpu blocked."""
+names, projects a full step and takes a step with the auto wire, imports
+the timing module and the benchmark scripts and runs an SpMM through the
+hub fold, with jax and gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -175,6 +176,18 @@ params = init_gcn_params(torch.Generator().manual_seed(0), data.num_features,
                          8, data.num_classes, device="cpu")
 opt = adam_l2([t.requires_grad_(True) for _, t in named_leaves(params)])
 assert np.isfinite(float(step(params, opt, (1, 0), a, xs, ys, ms)))
+import gcn_tpu_torch.bench_kpad, gcn_tpu_torch.bench_gather
+import gcn_tpu_torch.bench_e2e_width, gcn_tpu_torch.bench_hgnn
+import gcn_tpu_torch.bench_freq_split, gcn_tpu_torch.bench_fp8_wire
+from gcn_tpu_torch.utils import chain_timing
+assert chain_timing.on_device_ms("cpu", lambda: None) is None
+from gcn_tpu_torch.tile.ell import degree_sort_order
+gs = g.permute(degree_sort_order(g))
+ha = ell_adjacency(gs, span_pass_limit=1, device="cpu")
+assert ha.n_hub and len(ha.hub_steps) >= 2
+xh = torch.tensor(data.features, requires_grad=True)
+spmm(ha, xh).sum().backward()
+assert torch.isfinite(xh.grad).all()
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "gcn_tpu")
                 and sys.modules[k] is not None)
