@@ -179,7 +179,15 @@ Phases (each failure exits non-zero):
      float64 plain version at the f32 tolerance; K1's median of 30 calls
      beside its plain version, ``torch.sparse.mm`` on the same CSR and the
      bound;
- 15. [train_gcn flags], in a process of its own (``--train-gcn-flags``;
+ 15. [bench]: the one-line benchmark (``gcn_tpu_torch.bench``, the
+     counterpart of ``bench.py``) on phase 3's graph: its JSON line
+     printed; it fails unless the roofline share is at most 100%, the
+     training layout's ``spmm_ell`` (K1 and the hub fold) is within 10%
+     of phase 4's K1 and fold times, the serving layout's K1 within 10%
+     of ``bench_kpad``'s committed serving row
+     (``gcn_tpu_torch/results/kpad_sweep.json``), and its host columns
+     (n, nnz, k, slots, pad fraction) equal the layouts built here;
+ 16. [train_gcn flags], in a process of its own (``--train-gcn-flags``;
      torch.profiler dropped records late in the one long process):
      ``train_gcn.main`` on the card, synth-arxiv -k 32
      -i 20 --variant v6 --reorder gorder --profile-ops --save-path P
@@ -1879,6 +1887,73 @@ def orders_phase(dev, data):
     return rows
 
 
+BENCH_WITHIN = 0.10     # the benchmark's K1 times against this run's and bench_kpad's
+KPAD_SWEEP = os.path.join("gcn_tpu_torch", "results", "kpad_sweep.json")
+
+
+def kpad_serving_ms():
+    """``bench_kpad``'s committed serving K1 time at synth-arxiv, k =
+    k_pad = 32 (``gcn_tpu_torch/results/kpad_sweep.json``), and its
+    card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, KPAD_SWEEP)) as f:
+        sweep = json.load(f)
+    row = next(r for r in sweep["rows"] if r["graph"] == "synth-arxiv"
+               and r["k"] == r["k_pad"] == 32)
+    return row["ell_ms"], sweep["_meta"]["card"]
+
+
+def bench_phase(dev, data, g, perm, k1_ms, fold_ms):
+    """[bench]: the one-line benchmark ``gcn_tpu_torch.bench`` on the main
+    path's graph ``g`` (rabbit and the degree sort, ``perm[new] = old``):
+    its line printed, its roofline share at most 100%, its training-layout
+    time within BENCH_WITHIN of this run's [K1 timing] row ``k1_ms`` plus
+    its [hub fold] row ``fold_ms`` (the benchmark times ``spmm_ell``, K1 and
+    the fold, as ``bench.py`` times gcn_tpu's whole ``spmm_ell``), its
+    serving K1 time within BENCH_WITHIN of ``bench_kpad``'s committed
+    serving row (no hub rows, so no fold), and its host columns equal to
+    the layouts built here."""
+    from gcn_tpu_torch import bench
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+
+    t0 = time.time()
+    line = bench.measure(data, g, perm, 32, dev)
+    print(f"[bench] {json.dumps(line)}", flush=True)
+    d = line["detail"]
+    serving = ell_adjacency(g, symmetric=True, span_pass_limit=0,
+                            device=dev)
+    want = {"n": g.shape[0], "nnz": g.nnz, "k": 32,
+            "slots": int(serving.cols.numel()),
+            "pad_fraction": serving.pad_fraction}
+    got = {key: d[key] for key in want}
+    if got != want:
+        fail(f"bench host columns {got} differ from the layouts built "
+             f"here {want}")
+    del serving
+    if not d["roofline_pct"] <= 100.0:
+        fail(f"bench roofline_pct {d['roofline_pct']} above 100")
+    kpad_ms, kpad_card = kpad_serving_ms()
+    for key, ref, what in (("ell_ms_train_default", k1_ms + fold_ms,
+                            "this run's [K1 timing] + [hub fold] rows"),
+                           ("ell_ms", kpad_ms,
+                            f"bench_kpad's serving row ({kpad_card})")):
+        off = abs(d[key] / ref - 1.0)
+        print(f"[bench] {key} {d[key]:.4f} ms against {what} {ref:.4f} "
+              f"ms: {100 * off:.1f}% off (limit "
+              f"{100 * BENCH_WITHIN:.0f}%)", flush=True)
+        if off > BENCH_WITHIN:
+            fail(f"bench {key} {d[key]} ms is {100 * off:.1f}% off {what} "
+                 f"{ref} ms")
+    print(f"[bench] {line['value']:.4g} edges/s, vs_baseline "
+          f"{line['vs_baseline']:.3f}, K1 serving at "
+          f"{d['roofline_pct']:.2f}% of its bound, torch.sparse.mm "
+          f"{d['sparse_mm_ms']:.4f} ms; train step {d['train_step_ms']:.4f}"
+          f" / hoisted {d['train_step_hoisted_ms']:.4f} ms captured, "
+          f"{d['train_step_eager_ms']:.4f} / "
+          f"{d['train_step_hoisted_eager_ms']:.4f} eager "
+          f"({time.time() - t0:.1f}s)", flush=True)
+
+
 # profile_ops' rows of v6 at hidden 32 and 40 classes: layer 1 hoisted (no
 # af row), layer 2 on (AX)W
 PROFILE_ROWS = ["l1_xw", "l1_bi", "l2_af", "l2_xw", "l2_bi", "fwd", "bwd"]
@@ -2772,6 +2847,7 @@ def main():
     dist_rows = dist_phases(dev, data, g_rabbit, perm_rabbit, p0, k1_ms)
     hgnn_rows = hgnn_phases(dev)
     order_rows = orders_phase(dev, data)
+    bench_phase(dev, data, g, perm, k1_ms, fold_ms[0])
     train_gcn_flags_in_child(order_rows)
     print(f"[done] {time.time() - t_start:.1f}s", flush=True)
 

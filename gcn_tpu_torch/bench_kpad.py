@@ -44,18 +44,6 @@ DEFAULT_OUT = os.path.join(HERE, "results", "kpad_sweep.json")
 RTOL, ATOL_OF_MAX = 1e-5, 1e-6
 
 
-def prepared_graph(name, seed=0):
-    """``name`` through gcn_normalize, rabbit and the degree sort."""
-    from gcn_tpu_torch.data import get_dataset
-    from gcn_tpu_torch.graph.normalize import gcn_normalize
-    from gcn_tpu_torch.reorder import reorder_graph
-    from gcn_tpu_torch.tile.ell import degree_sort_order
-
-    g = gcn_normalize(get_dataset(name, seed=seed).adj)
-    g, _ = reorder_graph(g, "rabbit")
-    return g.permute(degree_sort_order(g))
-
-
 def k1_error(adj, x):
     """K1 (``ell_spmm`` on the forward arrays) against its plain version in
     float64, 32 columns at a time; raises past the f32 tolerance. Returns
@@ -83,13 +71,14 @@ def sweep_graph(name, ks, k_pads, device, reps):
     import numpy as np
     import torch
 
+    from gcn_tpu_torch.bench import prepared_graph
     from gcn_tpu_torch.ops import ell_spmm as es
     from gcn_tpu_torch.tile.ell import ell_adjacency
     from gcn_tpu_torch.utils.chain_timing import (bound_ms, on_device_ms,
                                                   spmm_work)
 
     t0 = time.time()
-    g = prepared_graph(name)
+    g = prepared_graph(name)[1]
     n, e = g.shape[0], g.nnz
     print(f"[{name}] n={n} nnz={e} (rabbit + degree sort "
           f"{time.time() - t0:.1f}s)", flush=True)

@@ -174,33 +174,48 @@ def stream_gb_per_s(mb: int = 512, reps: int = 20, device="cuda") -> float:
     return 2 * mb * 1024 * 1024 / (ms * 1e-3) / 1e9
 
 
-def train_step_ms(adj, feats, labels, idx_train, nhid: int, nclass: int,
-                  steps: int = 20, jit_loop: bool = True,
-                  weight_decay: float = 5e-4, seed: int = 0) -> float:
-    """Median ms of a GCN training step (forward, masked NLL, backward,
-    Adam with L2 decay; dropout 0), ``bench.py::bench_train_step``'s
-    counterpart: ``feats`` is the layer-1 input (A @ X when hoisted, then
-    layer 1 is a plain product), layer 2 contracts (A h) W at k = nhid.
-    ``jit_loop``: the captured step replayed (CUDA events between
-    replays), else eager steps between events; the median skips the fit's
-    warm-up steps in both flavors."""
+def train_step_fit(adj, feats, labels, idx_train, nhid: int, nclass: int,
+                   steps: int = 20, jit_loop: bool = True,
+                   weight_decay: float = 5e-4, seed: int = 0,
+                   orders=("xw", "ax_w"), params=None):
+    """The fit ``train_step_ms`` times (``fit_gcn``'s result): ``steps``
+    GCN training steps (forward, masked NLL, backward, Adam with L2 decay;
+    dropout 0) from ``params`` (a seeded ``init_gcn_params`` draw by
+    default), with ``orders`` the layers' contraction orders."""
     import torch
 
     from gcn_tpu_torch.models.gcn_core import gcn_forward, init_gcn_params
     from gcn_tpu_torch.train.loop import fit_gcn
     from gcn_tpu_torch.train.optim import adam_l2
 
-    params = init_gcn_params(torch.Generator().manual_seed(seed),
-                             feats.shape[1], nhid, nclass,
-                             device=feats.device)
+    if params is None:
+        params = init_gcn_params(torch.Generator().manual_seed(seed),
+                                 feats.shape[1], nhid, nclass,
+                                 device=feats.device)
 
     def forward(p, train):
-        return gcn_forward(p, feats, adj, orders=("xw", "ax_w"),
-                           dropout_rate=0.0, train=train)
+        return gcn_forward(p, feats, adj, orders=orders, dropout_rate=0.0,
+                           train=train)
 
-    res = fit_gcn(params, lambda ps: adam_l2(ps, 0.01, weight_decay),
-                  forward, labels, idx_train, train_iters=steps,
-                  mode="no_val", jit_loop=jit_loop)
+    return fit_gcn(params, lambda ps: adam_l2(ps, 0.01, weight_decay),
+                   forward, labels, idx_train, train_iters=steps,
+                   mode="no_val", jit_loop=jit_loop)
+
+
+def train_step_ms(adj, feats, labels, idx_train, nhid: int, nclass: int,
+                  steps: int = 20, jit_loop: bool = True,
+                  weight_decay: float = 5e-4, seed: int = 0,
+                  orders=("xw", "ax_w")) -> float:
+    """Median ms of a GCN training step (``train_step_fit``),
+    ``bench.py::bench_train_step``'s counterpart: ``feats`` is the layer-1
+    input, raw features with ``orders=("a_xw", "ax_w")`` (4 SpMMs a step)
+    or A @ X with the default ``("xw", "ax_w")`` (layer 1 a plain product,
+    2 SpMMs); layer 2 contracts (A h) W at k = nhid. ``jit_loop``: the
+    captured step replayed (CUDA events between replays), else eager
+    steps between events; the median skips the fit's warm-up steps in
+    both flavors."""
+    res = train_step_fit(adj, feats, labels, idx_train, nhid, nclass, steps,
+                         jit_loop, weight_decay, seed, orders)
     return res.timers("step").d.median_ms
 
 

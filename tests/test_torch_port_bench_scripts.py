@@ -27,6 +27,7 @@ from gcn_tpu_torch import (bench_e2e_width, bench_fp8_wire,
                            bench_kpad)
 from gcn_tpu_torch.utils.artifacts import validate_artifact
 from torch_port_dist_graphs import REPO, subprocess_env
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
 def _jx_prepared(name):

@@ -14,6 +14,7 @@ in another order.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1146,3 +1147,24 @@ def test_kernel_on_k_pad_64_layout_on_card(cuda, k):
         _close(got, es._ell_spmm_plain(x.double(), arrays[0],
                                        arrays[1].double(),
                                        *arrays[2:]).float())
+
+
+@pytest.mark.cuda
+def test_bench_on_card(cuda, capsys):
+    """``python -m gcn_tpu_torch.bench`` on a small graph on the card: one
+    JSON line, every time finite and positive, K1 within its bound."""
+    from gcn_tpu_torch import bench
+
+    assert bench.main(["--dataset", "synth-cora-hard", "-k", "16"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    d = line["detail"]
+    times = [line["value"], line["vs_baseline"]] + [
+        d[key] for key in ("ell_ms", "ell_ms_train_default",
+                           "coo_baseline_ms", "sparse_mm_ms",
+                           "train_step_ms", "train_step_hoisted_ms",
+                           "train_step_eager_ms",
+                           "train_step_hoisted_eager_ms",
+                           "gather_ns_per_row", "event_floor_ms")]
+    assert all(np.isfinite(t) and t > 0 for t in times), line
+    assert 0 < d["roofline_pct"] <= 100
+    assert d["card"]["kind"] == torch.cuda.get_device_name(cuda)

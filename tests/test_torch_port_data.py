@@ -20,6 +20,7 @@ from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.reorder import METHODS, compute_permutation, reorder_graph
 from gcn_tpu_torch.reorder import native
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 DATASETS = ("synth-tiny", "synth-pubmed")
 # a heavy-tailed graph whose hub rows the tiler splits (the SBM datasets

@@ -28,6 +28,7 @@ from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.ops.spmm import hoist_spmm, spmm
 from gcn_tpu_torch.tile import freq_split as fs
 from gcn_tpu_torch.tile.ell import ell_adjacency
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 _ELL_TENSORS = ("cols", "vals", "win", "t_cols", "t_vals", "t_win",
                 "virt_map", "t_virt_map")

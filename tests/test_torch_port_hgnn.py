@@ -31,6 +31,7 @@ from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
 from gcn_tpu_torch.tile.ell import EllAdj
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
 def _cloud(seed, n=160, f=24, classes=4):

@@ -45,6 +45,7 @@ from gcn_tpu_torch.reorder import (load_order, python_impl, reorder_stats,
 from gcn_tpu_torch.train.metrics import micro_f1
 from gcn_tpu_torch.utils import artifacts, writecsv
 from gcn_tpu_torch.utils.profiling import device_trace, setup_logging
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 GRAPHS = ("synth-tiny", "synth-cora-hard")
 

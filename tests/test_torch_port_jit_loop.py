@@ -62,6 +62,7 @@ from gcn_tpu_torch.tile import degree_sort_order, panel_adjacency
 from gcn_tpu_torch.train import capture
 from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.optim import adam_l2
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 # (mode, learning rate, steps): early_stop with patience 3 at a rate where
 # the val loss turns up, so that the run stops before its last step

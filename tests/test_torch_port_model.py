@@ -26,6 +26,7 @@ from gcn_tpu_torch.models import GCN
 from gcn_tpu_torch.models.gcn_core import gcn_forward
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.graph.normalize import gcn_normalize
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
 def _jax_params(seed, nfeat, nhid, nclass):

@@ -7,8 +7,9 @@ profiles a fitted model's ops, takes a step on a 2 x 2 mesh with a model
 axis, tiles with the native tiler and runs the rest of CSRGraph, imports
 the projection, the measurement and host scripts and the lazy top-level
 names, projects a full step and takes a step with the auto wire, imports
-the timing module and the benchmark scripts and runs an SpMM through the
-hub fold, with jax and gcn_tpu blocked."""
+the timing module and the benchmark scripts, runs the one-line SpMM benchmark
+(``gcn_tpu_torch.bench``) and an SpMM through the hub fold, with jax and
+gcn_tpu blocked."""
 
 import os
 import subprocess
@@ -181,6 +182,9 @@ import gcn_tpu_torch.bench_e2e_width, gcn_tpu_torch.bench_hgnn
 import gcn_tpu_torch.bench_freq_split, gcn_tpu_torch.bench_fp8_wire
 from gcn_tpu_torch.utils import chain_timing
 assert chain_timing.on_device_ms("cpu", lambda: None) is None
+import gcn_tpu_torch.bench
+assert gcn_tpu_torch.bench.main(["--dataset", "synth-tiny", "--device",
+                                 "cpu"]) == 0
 from gcn_tpu_torch.tile.ell import degree_sort_order
 gs = g.permute(degree_sort_order(g))
 ha = ell_adjacency(gs, span_pass_limit=1, device="cpu")

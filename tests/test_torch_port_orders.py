@@ -26,6 +26,7 @@ from gcn_tpu_torch import train_gcn
 from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.models import GCN
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

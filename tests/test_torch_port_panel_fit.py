@@ -39,6 +39,7 @@ from gcn_tpu_torch.reorder import reorder_graph
 from gcn_tpu_torch.tile import degree_sort_order, panel_adjacency
 from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.optim import adam_l2
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
 def _reordered(g, reorder, degree_sort):

@@ -27,6 +27,7 @@ from gcn_tpu_torch.parallel import halo as pt_halo
 from gcn_tpu_torch.parallel import partition as pt_part
 from gcn_tpu_torch.parallel import projection as pt
 from torch_port_dist_graphs import port_graph
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 RATES = dict(spmm_edges_per_s=3.3e10, bw_ici=3.0e11, bw_dcn=5.0e10)
 FULL = dict(RATES, mxu_flops=1.3e13, kernel_scales=(25.0, 24.0))

@@ -29,6 +29,7 @@ from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.graph.hypergraph import generate_G_from_H
 from gcn_tpu_torch.models import GCN, HGNN
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 ITERS = 6
 

@@ -16,6 +16,8 @@ import pytest
 from gcn_tpu_torch import ablate_reorder, bench_scaling, row_analysis
 from gcn_tpu_torch.parallel import projection as pt
 from torch_port_dist_graphs import REPO, subprocess_env
+from torch_port_native import native_reorder  # noqa: F401 (autouse)
+from torch_port_native import pinned_command
 
 
 def _rows(out):
@@ -90,9 +92,11 @@ def test_bench_scaling_live_on_the_cpu(capsys, kernel):
 
 
 def _gcn_tpu_script(name, args):
+    """gcn_tpu's ``examples/name`` in a subprocess, its reorder library
+    loaded from this process's private build (``torch_port_native``)."""
     env = dict(subprocess_env(), JAX_PLATFORMS="cpu")
     proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "examples", name)] + args,
+        pinned_command(os.path.join(REPO, "examples", name), args),
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stdout
