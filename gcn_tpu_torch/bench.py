@@ -98,16 +98,28 @@ def _ratio(a, b):
     return None if a is None or b is None else a / b
 
 
-def measure(data, g, perm, k=32, device="cuda", dataset="synth-arxiv"):
+def layouts(g, device):
+    """(serving, training): the ELL layouts of ``g`` that ``measure``
+    times, ``bench.py``'s ``span_pass_limit=0`` one and the default hub
+    split."""
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+
+    return (ell_adjacency(g, symmetric=True, span_pass_limit=0,
+                          device=device),
+            ell_adjacency(g, symmetric=True, device=device))
+
+
+def measure(data, g, perm, k=32, device="cuda", dataset="synth-arxiv",
+            adjs=None):
     """The JSON line of the module docstring for ``dataset`` prepared as
-    (data, g, perm) by ``prepared_graph``, at width k on ``device``."""
+    (data, g, perm) by ``prepared_graph``, at width k on ``device``;
+    ``adjs`` is ``layouts(g, device)`` where the caller has built it."""
     import numpy as np
     import torch
 
     from gcn_tpu_torch.ops.adjacency import coo_adjacency
     from gcn_tpu_torch.ops.ell_spmm import spmm_ell
     from gcn_tpu_torch.ops.spmm import hoist_spmm, spmm
-    from gcn_tpu_torch.tile.ell import ell_adjacency
     from gcn_tpu_torch.utils import chain_timing as ct
 
     device = torch.device(device)
@@ -117,11 +129,9 @@ def measure(data, g, perm, k=32, device="cuda", dataset="synth-arxiv"):
         np.random.default_rng(0).standard_normal((n, k)).astype(np.float32)
         * 0.01, device=device)
 
-    adj_ell = ell_adjacency(g, symmetric=True, span_pass_limit=0,
-                            device=device)
+    adj_ell, adj_train = adjs or layouts(g, device)
     t_ell = ct.on_device_ms(device, lambda x: spmm_ell(adj_ell, x), x0,
                             REPS)
-    adj_train = ell_adjacency(g, symmetric=True, device=device)
     t_train = ct.on_device_ms(device, lambda x: spmm_ell(adj_train, x), x0,
                               REPS)
     adj_coo = coo_adjacency(g, symmetric=True, device=device)

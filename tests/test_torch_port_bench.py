@@ -101,6 +101,24 @@ def test_host_columns_equal_gcn_tpu(cpu_line):
     assert d["pad_fraction"] == serving.pad_fraction
 
 
+def test_layouts_are_the_ones_measured(cpu_line):
+    """``bench.layouts`` (which chip_smoke.py checks K1 on) gives the
+    serving layout with no hub rows and gcn_tpu's slots, and the training
+    layout with the default hub cap; measuring on them gives the line
+    ``measure`` gives when it builds its own."""
+    data, g, perm = bench.prepared_graph(GRAPH)
+    serving, train = bench.layouts(g, "cpu")
+    jg = _jx_graph()
+    assert serving.n_hub == 0
+    assert int(serving.cols.numel()) == int(jx_ell(
+        jg, symmetric=True, span_pass_limit=0).cols.size)
+    assert train.span_pass_limit == jx_ell(jg, symmetric=True).span_pass_limit
+    assert int(train.cols.numel()) == int(jx_ell(jg, symmetric=True).cols.size)
+    line = bench.measure(data, g, perm, 16, "cpu", GRAPH,
+                         adjs=(serving, train))
+    assert line == cpu_line
+
+
 def test_roofline_is_slots_times_ns_per_slot(cpu_line):
     d = cpu_line["detail"]
     assert d["roofline_ms"] > 0
