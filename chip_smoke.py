@@ -44,6 +44,17 @@ Phases (each failure exits non-zero):
      [hub fold]: two calls of ``spmm_ell`` (K1 and the hub fold) bit-equal
      forward and dX at k=32, the fold against the former ``index_add_``
      fold at rtol 1e-6, and both folds' device ms;
+     [K1 walk split]: K1's walk split plan (``EllAdj.split``; every layout
+     of every phase prints its own as a "[K1 plan]" line: heavy windows,
+     the cluster size C, the longest walk under the plan and unsplit, and
+     the kernel launches a call, from which the captured fits' kernel
+     records are reckoned); the main path's layout must have no heavy
+     window; on the serving layout at k_pad 32, 64 and 128 (P = 4, 2, 1),
+     whose hub windows are cut across clusters, K1 at k = k_pad in its
+     four variants (f32, table_bf16, products_bf16, both) against its
+     plain version (the tolerances above), two calls bit-equal, the plan's
+     plain sums against the plain version in float64, and K1's time beside
+     its plain version's, ``torch.sparse.mm``'s and the bound;
   5. K2 (the panel SpMM) against its plain version in float64, at the f32
      tolerance:
      synth-arxiv forward at k=32 and k=128, the layer-1 hoist at k=128 (4
@@ -202,7 +213,8 @@ Phases (each failure exits non-zero):
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
-kernel records, and ``captured_host_calls``), and K1 at HGNN's, the
+kernel records, and ``captured_host_calls``), K1 on the serving layouts
+(with their plans), and K1 at HGNN's, the
 frequency split's and the sharded parts' shapes (every flavor's new
 layouts too, and the model axis's hidden shard), each
 with the launches at its width of the run that uses it, and K1 after each
@@ -464,6 +476,26 @@ def k1_arrays(adj, t=False):
             adj.n_cols)
 
 
+def k1_plan(adj, t=False):
+    """K1's walk split plan of one direction of an EllAdj."""
+    return adj.t_split if t else adj.split
+
+
+def plan_line(label, adj, t=False):
+    """Print K1's walk split plan of one direction of ``adj``: the heavy
+    windows, cut across clusters of C thread blocks, and the longest walk
+    of one thread block under the plan against the layout's longest window
+    walk (pass-blocks); return the plan."""
+    plan = k1_plan(adj, t)
+    off = adj.t_win_off if t else adj.win_off
+    print(f"  [K1 plan] {label}: {plan.n_heavy} heavy windows of "
+          f"{off.numel() - 1} in clusters of C={plan.clusters}, "
+          f"{plan.n_light} light; longest walk {plan.walk} pass-blocks under "
+          f"the plan, {int(off.diff().max())} unsplit; {plan.launches} "
+          f"kernel launch(es) a call", flush=True)
+    return plan
+
+
 def spmm_bound(nnz, win_off, n_in, n_out, k):
     """The least time of an SpMM over ``nnz`` stored edges at this run's
     inputs: 8 B an edge (its column and value; padding slots are layout,
@@ -495,8 +527,9 @@ def k1_use(label, adj, t, x, csr, launches, path, replaces, reps=30):
 
     cols, vals, win, win_off, n_out, n_in = k1_arrays(adj, t)
     k = x.shape[1]
+    plan = k1_plan(adj, t)
     ms = chain_ms(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
-                                        n_out), x, reps, n_in)
+                                        n_out, plan=plan), x, reps, n_in)
     plain_ms = chain_ms(lambda v: es._ell_spmm_plain(
         v, cols, vals, win, win_off, n_out), x, 3, n_in)
     lib_ms = chain_ms(lambda v: torch.sparse.mm(csr, v), x, reps, n_in)
@@ -666,6 +699,9 @@ def hgnn_phases(dev):
               f"n_hub={a.n_hub} max blocks/window={int(blocks.max())}"
               + (f" (tiled in {secs:.1f}s)" if secs is not None else ""),
               flush=True)
+        plan_line(label, a)
+        if not a.symmetric:
+            plan_line(f"{label} transpose arrays", a, True)
     if gadj.k_pad != 128 or gadj.p != 1:
         fail("HGNN's G is not on the k_pad 128 (P = 1) layout")
 
@@ -676,7 +712,8 @@ def hgnn_phases(dev):
 
     def k1(a, x, t=False):
         cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
-        return es.ell_spmm(x, cols, vals, win, win_off, n_out)
+        return es.ell_spmm(x, cols, vals, win, win_off, n_out,
+                           plan=k1_plan(a, t))
 
     if a1.shape != (n, n) or a2.shape != (n, n):
         fail("the KNN hypergraph has not one hyperedge a vertex")
@@ -928,6 +965,7 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
     rows = []
     for label, part, lo, hi in (("hot", fs.hot, 0, hot_rows),
                                 ("cold", fs.cold, hot_rows, n)):
+        plan_line(f"freq-split {label} part", part)
         # the part alone: forward on x[lo:hi], dX through its transpose
         # arrays, each against its float64 plain version
         part_err = 0.0
@@ -936,7 +974,7 @@ def freq_phases(dev, g, data, p0, ell_losses, adj):
             part_err = max(part_err, compare(
                 f"{label} part {'transpose arrays' if t else 'fwd'} k=32, "
                 f"K1 vs plain", es.ell_spmm(xin, cols, vals, win, win_off,
-                                            n_out),
+                                            n_out, plan=k1_plan(part, t)),
                 es._ell_spmm_plain(xin.double(), cols, vals.double(), win,
                                    win_off, n_out)))
         csr = CSRGraph.from_scipy(full[:, lo:hi].tocsr()).to_torch(dev)
@@ -1099,6 +1137,8 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
                   f"{off.numel() - 1} windows, up to "
                   f"{int(off.diff().max())} pass-blocks a window",
                   flush=True)
+            plan_line(f"{name} part, shard 0, "
+                      f"{'transpose arrays' if t else 'forward'}", a, t)
 
     print("[dist K1 vs plain] shard 0's parts at the widths the step "
           "launches, float64 plain version, f32 tolerance", flush=True)
@@ -1110,7 +1150,8 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
                                             generator=gen)
         errs[name, t, k] = compare(
             f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
-            es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+            es.ell_spmm(xk, cols, vals, win, win_off, n_out,
+                        plan=k1_plan(parts[name][0], t)),
             es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
                                win_off, n_out))
     torch.cuda.synchronize()
@@ -1294,8 +1335,9 @@ def sharded_k1_row(a, t, xk, label, launches, path, err):
 
     cols, vals, win, win_off, n_out, n_in = k1_arrays(a, t)
     k = xk.shape[1]
+    plan = k1_plan(a, t)
     ms = chain_ms(lambda _: es.ell_spmm(xk, cols, vals, win, win_off,
-                                        n_out), xk, 30, n_in)
+                                        n_out, plan=plan), xk, 30, n_in)
     plain_ms = chain_ms(lambda _: es._ell_spmm_plain(
         xk, cols, vals, win, win_off, n_out), xk, 3, n_in)
     csr = ell_csr(a, t, xk.device)
@@ -1422,6 +1464,8 @@ def dist_flavor_phases(dev, run):
                       f"{off.numel() - 1} windows, up to "
                       f"{int(off.diff().max())} pass-blocks a window",
                       flush=True)
+                plan_line(f"{label} {name}, shard 0, "
+                          f"{'transpose arrays' if t else 'forward'}", a, t)
         print(f"  K1 vs plain, shard 0, float64 plain version, f32 "
               f"tolerance", flush=True)
         xs_k, errs = {}, {}
@@ -1432,7 +1476,8 @@ def dist_flavor_phases(dev, run):
                                                 generator=gen)
             errs[name, t, k] = compare(
                 f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
-                es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+                es.ell_spmm(xk, cols, vals, win, win_off, n_out,
+                            plan=k1_plan(parts[name][0], t)),
                 es._ell_spmm_plain(xk.double(), cols, vals.double(), win,
                                    win_off, n_out))
         torch.cuda.synchronize()
@@ -1576,7 +1621,8 @@ def model_axis_phase(dev, run):
                                                  generator=gen)
                 errs[name, t] = compare(
                     f"{name} {'transpose arrays' if t else 'fwd'} k={k}",
-                    es.ell_spmm(xk, cols, vals, win, win_off, n_out),
+                    es.ell_spmm(xk, cols, vals, win, win_off, n_out,
+                                plan=k1_plan(parts[name][0], t)),
                     es._ell_spmm_plain(xk.double(), cols, vals.double(),
                                        win, win_off, n_out))
             torch.cuda.synchronize()
@@ -1854,11 +1900,13 @@ def orders_phase(dev, data):
         cols, vals, win, win_off, n_out, n_in = k1_arrays(adj)
         reset_launches()
         err = compare(f"{method} fwd k=32, K1 vs plain",
-                      es.ell_spmm(x, cols, vals, win, win_off, n_out),
+                      es.ell_spmm(x, cols, vals, win, win_off, n_out,
+                                  plan=adj.split),
                       es._ell_spmm_plain(x.double(), cols, vals.double(),
                                          win, win_off, n_out))
         ms = chain_ms(lambda v: es.ell_spmm(v, cols, vals, win, win_off,
-                                            n_out), x, 30, n_in)
+                                            n_out, plan=adj.split), x, 30,
+                      n_in)
         torch.cuda.synchronize()
         launches = read_launches()
         plain_ms = chain_ms(lambda v: es._ell_spmm_plain(
@@ -2013,6 +2061,7 @@ def train_gcn_flags_phase():
         out, seen["fit_records"] = kernel_records(
             lambda: fit(self, *args, **kw), "ell_spmm")
         seen["fit"] = read_launches()
+        seen["per_call"] = self.adj_norm.split.launches
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2036,7 +2085,8 @@ def train_gcn_flags_phase():
         loaded = train_gcn.main(argv + ["--load-path", params])
     losses = [h["loss_train"] for h in hist["history"]]
     fit_host, records = seen["fit"], seen["fit_records"]
-    expected = 4 + 2 * steps + 1
+    # kernel records: K1's launches a call, from the layout's walk split
+    expected = (4 + 2 * steps + 1) * seen["per_call"]
     host_expected = 4 + 2 * (WARMUP + 1) + 1
     timers = seen["timers"]
     profile_expected = (20 + 5) * 4     # l2_af, fwd, and bwd's two a row
@@ -2044,8 +2094,9 @@ def train_gcn_flags_phase():
           f"{losses[-1]:.6f}; test accuracy {acc:.4f}, after --load-path "
           f"{loaded:.4f}; history keys {sorted(hist)}", flush=True)
     print(f"  K1 launches: fit {records} kernel records under "
-          f"torch.profiler (expected {expected} = 4 hoist + 2 x {steps} "
-          f"steps + 1 eval), {fit_host[0]} host calls by width "
+          f"torch.profiler (expected {expected} = (4 hoist + 2 x {steps} "
+          f"steps + 1 eval) x {seen['per_call']} a call), {fit_host[0]} "
+          f"host calls by width "
           f"{fit_host[1]} (expected {host_expected}: {WARMUP} warm-up steps "
           f"and the captured one); profile {seen['profile'][0]} (expected "
           f"{profile_expected})", flush=True)
@@ -2186,11 +2237,15 @@ def captured_gcn_phase(dev, data, eager, panel):
     if abs(acc - acc_eager) > 2.0 / len(data.idx_test):
         fail(f"captured test accuracy {acc} against eager {acc_eager}")
     cap2, records = kernel_records(main_path, "ell_spmm")
+    # K1's kernel launches a call, reckoned from the layout's walk split
+    per_call = cap.adj_norm.split.launches
+    plan_line("main path (GCN v6's layout)", cap.adj_norm)
     print(f"  K1: {host} host calls (expected {host_expected} = 4 hoist + "
           f"2 x ({WARMUP} warm-up + 1 captured) + 1 eval); {records} "
           f"kernel records under torch.profiler (expected "
-          f"{records_expected} = 4 + 2 x {steps} + 1)", flush=True)
-    if host != host_expected or records != records_expected:
+          f"{records_expected * per_call} = (4 + 2 x {steps} + 1) x "
+          f"{per_call} a call)", flush=True)
+    if host != host_expected or records != records_expected * per_call:
         fail(f"captured main path: K1 {host} host calls, {records} "
              f"records")
     check_close_losses("main path profiled captured run vs the first",
@@ -2270,7 +2325,7 @@ def hub_fold_phase(dev, adj, x, ct):
                  forward_and_dx)
     with torch.no_grad():
         virt = es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
-                           adj.row_space)
+                           adj.row_space, plan=adj.split)
         # the fold writes its sums over K1's output: a copy each
         compare("fold vs the index_add_ fold",
                 es._hub_epilogue(virt.clone(), adj),
@@ -2289,6 +2344,97 @@ def hub_fold_phase(dev, adj, x, ct):
 
 
 WIDE_HIDDENS = (64, 128)    # GCN picks k_pad 64 and 128 at synth-arxiv
+# K1's four variants: f32, a bf16 table, bf16 pass-block sums, both
+K1_VARIANTS = ({}, {"table_bf16": True}, {"products_bf16": True},
+               {"table_bf16": True, "products_bf16": True})
+
+
+def check_k1_variants(label, a, x, t=False):
+    """K1 on one direction of ``a`` under its walk split plan, in each of
+    the four variants, against its plain version: in float64 at the f32
+    tolerance (a bf16 table: the plain version of the rounded x), or
+    (products_bf16) the f32 plain version of the same x at rtol and atol
+    BF16_TOL with >= 99% of the elements at the f32 tolerance; then two
+    calls bit-equal. Returns the f32 check's max abs error."""
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+
+    cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
+    plan = k1_plan(a, t)
+    err = None
+    for opts in K1_VARIANTS:
+        name = f"{label} {'+'.join(opts) or 'f32'}"
+        got = es.ell_spmm(x, cols, vals, win, win_off, n_out, plan=plan,
+                          **opts)
+        xr = x.to(torch.bfloat16).float() if opts.get("table_bf16") else x
+        if opts.get("products_bf16"):
+            want = es._ell_spmm_plain(xr, cols, vals, win, win_off, n_out,
+                                      True)
+            compare(name, got, want, BF16_TOL, atol=BF16_TOL)
+            same = share_within(got, want)
+            if same < 0.99:
+                fail(f"{name}: {100 * same:.3f}% of the elements at the f32 "
+                     f"tolerance")
+        else:
+            e = compare(name, got, es._ell_spmm_plain(
+                xr.double(), cols, vals.double(), win, win_off, n_out))
+            err = e if not opts else err
+    check_repeat(label, lambda: es.ell_spmm(x, cols, vals, win, win_off,
+                                            n_out, plan=plan))
+    return err
+
+
+def walk_split_phase(dev, g, adj, serving, csr):
+    """[K1 walk split]: K1's walk split plan on the main path's layout
+    (no heavy window: one launch, as before the split) and on the serving
+    layout (``bench.layouts``: no hub split) at k_pad 32, 64 and 128 (P =
+    4, 2, 1), whose hub windows are cut across clusters; on each serving
+    layout, at k = k_pad, K1 in its four variants against its plain
+    version, the plan's plain sums (parts apart, then in rank order)
+    against the plain version in float64 (the plan covers each pass-block
+    once), and K1's time beside its plain version's, ``torch.sparse.mm``'s
+    and the bound. Returns the ``kernels`` rows."""
+    import torch
+
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.tile.ell import ell_adjacency
+
+    print("[K1 walk split] synth-arxiv: the main path's layout and the "
+          "serving layouts (no hub split)", flush=True)
+    if plan_line("main path, k_pad 32", adj).n_heavy:
+        fail("the main path's layout has heavy windows")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = []
+    for kp in (32, 64, 128):
+        a = serving if kp == 32 else ell_adjacency(
+            g, symmetric=True, span_pass_limit=0, k_pad=kp, device=dev)
+        plan = plan_line(f"serving, k_pad {kp} (P={a.p})", a)
+        if a.n_hub or not (plan.n_heavy and plan.n_light):
+            fail(f"the serving layout at k_pad {kp} has {a.n_hub} hub rows, "
+                 f"{plan.n_heavy} heavy and {plan.n_light} light windows")
+        x = torch.randn(g.shape[0], kp, device=dev, generator=gen)
+        reset_launches()
+        err = check_k1_variants(f"serving k_pad {kp} fwd k={kp}", a, x)
+        cols, vals, win, win_off, n_out, _ = k1_arrays(a)
+        compare(f"serving k_pad {kp}: the plan's plain sums (float64)",
+                es._ell_spmm_plain_split(x.double(), cols, vals.double(),
+                                         win_off, plan, n_out),
+                es._ell_spmm_plain(x.double(), cols, vals.double(), win,
+                                   win_off, n_out))
+        row = k1_use(f"serving layout (no hub split), k_pad {kp}, k={kp}",
+                     a, False, x, csr, ({}, {}),
+                     "[K1 walk split] phase's own calls", K1_REPLACES)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        row.update(max_abs_err=err, k_pad=kp, p=a.p,
+                   launches=launches[1].get(kp, 0),
+                   launches_by_k=launches[1], heavy_windows=plan.n_heavy,
+                   clusters=plan.clusters, walk=plan.walk,
+                   unsplit_walk=int(a.win_off.diff().max()))
+        rows.append(row)
+        del a
+    return rows
 
 
 def wide_kpad_phase(dev, g, data):
@@ -2318,6 +2464,7 @@ def wide_kpad_phase(dev, g, data):
               f"{adj.cols.numel()} pad {adj.pad_fraction:.3f} n_hub "
               f"{adj.n_hub} fold steps {len(adj.hub_steps)} max blocks a "
               f"window {int(adj.win_off.diff().max())}", flush=True)
+        plan_line(f"k_pad {kp}", adj)
         xs = {k: torch.randn(g.shape[0], k, device=dev, generator=gen)
               for k in (kp, 40)}
         errs = {}
@@ -2325,7 +2472,7 @@ def wide_kpad_phase(dev, g, data):
             errs[k] = compare(
                 f"K1 k_pad {kp} fwd k={k}",
                 es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
-                            adj.row_space),
+                            adj.row_space, plan=adj.split),
                 es._ell_spmm_plain(x.double(), adj.cols, adj.vals.double(),
                                    adj.win, adj.win_off, adj.row_space))
         steps = 20
@@ -2351,14 +2498,16 @@ def wide_kpad_phase(dev, g, data):
         torch.cuda.synchronize()
         host = read_launches()[0]
         _, records = kernel_records(lambda: fit(True), "ell_spmm")
+        per_call = eager.adj_norm.split.launches
         print(f"  hidden {hidden}: K1 launches {launches[0]} eager "
               f"{launches[1]} (expected {expected} = {hoist} hoist + 2 x "
-              f"{steps} + 1); captured {records} kernel records, {host} "
+              f"{steps} + 1); captured {records} kernel records (expected "
+              f"{expected * per_call}: {per_call} a call), {host} "
               f"host calls (expected {hoist + 2 * (WARMUP + 1) + 1}); loss "
               f"{losses_of(eager)[0]:.4f} -> {losses_of(eager)[-1]:.4f}, "
               f"test accuracy {eager.test(data.idx_test, verbose=False):.4f}",
               flush=True)
-        if (launches[0] != expected or records != expected
+        if (launches[0] != expected or records != expected * per_call
                 or host != hoist + 2 * (WARMUP + 1) + 1):
             fail(f"hidden {hidden}: K1 launches {launches}, records "
                  f"{records}, host calls {host}")
@@ -2458,9 +2607,9 @@ def main():
     def k1(a, x, t=False, **opts):
         if t:
             return es.ell_spmm(x, a.t_cols, a.t_vals, a.t_win, a.t_win_off,
-                               a.t_row_space, **opts)
+                               a.t_row_space, plan=a.t_split, **opts)
         return es.ell_spmm(x, a.cols, a.vals, a.win, a.win_off, a.row_space,
-                           **opts)
+                           plan=a.split, **opts)
 
     def plain(a, x, t=False, table_bf16=False, products_bf16=False,
               f64=False):
@@ -2494,6 +2643,7 @@ def main():
     errs.append(compare(f"serving fwd k=32 (no hub split, walks up to "
                         f"{walk} pass-blocks)", k1(bench_adjs[0], x32),
                         exact(bench_adjs[0], x32)))
+    plan_line("serving", bench_adjs[0])
     feats = torch.as_tensor(data.features[perm], device=dev)
     errs.append(compare("arxiv k=128 one launch", k1(adj, feats),
                         exact(adj, feats)))
@@ -2591,6 +2741,7 @@ def main():
     print(f"  K1 at {100 * bound_ms / k1_ms:.1f}% of the bound "
           f"(by {bound_by})", flush=True)
     fold_ms = hub_fold_phase(dev, adj, x32, ct)
+    split_rows = walk_split_phase(dev, g, adj, bench_adjs[0], csr)
 
     # ---- 5. K2 against its plain version, against K1, and its time -------
     t0 = time.time()
@@ -2901,7 +3052,8 @@ def main():
         "heavy_windows": padj.heavy.numel(),
         "captured_launches": captured["panel"][0],
         "captured_host_calls": captured["panel"][1],
-    }] + wide_rows + hgnn_rows + freq_rows + dist_rows + order_rows}))
+    }] + split_rows + wide_rows + hgnn_rows + freq_rows + dist_rows
+        + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

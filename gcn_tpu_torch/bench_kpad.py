@@ -19,6 +19,9 @@ width k:
   * gcn_tpu's columns: ``ell_ms`` (median of ``--reps`` chained calls
     behind a spin kernel, ``utils/chain_timing.py``), ``edges_per_s``
     (stored edges over it), ``slots``, ``pad_fraction``, ``spans``;
+  * K1's walk split plan (``EllAdj.split``): ``heavy_windows`` cut across
+    clusters of ``clusters`` thread blocks, the layout's ``longest_walk``
+    and the plan's ``split_walk``, in pass-blocks;
   * ``plain_ms``: K1's plain version (``ops/ell_spmm.py``) on the card,
     median of 3 chained calls; ``sparse_mm_ms``: ``torch.sparse.mm`` on
     the same CSR, timed as K1;
@@ -54,7 +57,7 @@ def k1_error(adj, x):
 
     args = (adj.cols, adj.vals, adj.win, adj.win_off, adj.row_space)
     with torch.no_grad():
-        got = es.ell_spmm(x, *args).double()
+        got = es.ell_spmm(x, *args, plan=adj.split).double()
         want = torch.cat([es._ell_spmm_plain(
             x[:, c:c + 32].double(), adj.cols, adj.vals.double(),
             *args[2:]) for c in range(0, x.shape[1], 32)], dim=1)
@@ -96,8 +99,8 @@ def sweep_graph(name, ks, k_pads, device, reps):
         for k in ks:
             x = xs[k]
             err = k1_error(adj, x)
-            ms = on_device_ms(device, lambda v: es.ell_spmm(v, *args), x,
-                              reps)
+            ms = on_device_ms(device, lambda v: es.ell_spmm(
+                v, *args, plan=adj.split), x, reps)
             plain_ms = on_device_ms(
                 device, lambda v: es._ell_spmm_plain(v, *args), x, 3)
             lib = on_device_ms(device, lambda v: torch.sparse.mm(csr, v), x,
@@ -110,7 +113,11 @@ def sweep_graph(name, ks, k_pads, device, reps):
                 "edges_per_s": None if ms is None else e / (ms * 1e-3),
                 "slots": int(adj.cols.numel()),
                 "pad_fraction": round(adj.pad_fraction, 4),
-                "spans": len(adj.spans), "plain_ms": plain_ms,
+                "spans": len(adj.spans),
+                "heavy_windows": adj.split.n_heavy,
+                "clusters": adj.split.clusters,
+                "longest_walk": int(adj.win_off.diff().max()),
+                "split_walk": adj.split.walk, "plain_ms": plain_ms,
                 "sparse_mm_ms": lib,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "x_mb": n * k * 4 / 1e6, "max_abs_err": err,

@@ -4,7 +4,15 @@
 (``cols``/``vals``/``win``/``win_off``) into the row space ``n_out``:
 
   * on a CUDA tensor it launches K1, the hand-written kernel in
-    ``csrc/ell_spmm.cu`` (built by ``_build.py``), or raises;
+    ``csrc/ell_spmm.cu`` (built by ``_build.py``), or raises. K1 shares the
+    windows' walks out by the direction's walk split ``plan``
+    (``tile/ell.py::walk_split``, ``EllAdj.split`` / ``t_split``): the
+    light windows in one launch, and the heavy ones, each cut across a
+    thread block cluster, in a second launch on a side stream forked from
+    the current one; the current stream waits for both. Without a plan
+    ``ell_spmm`` makes it from ``win_off`` on the host, which reads
+    ``win_off`` back (a synchronisation), and so raises under a CUDA graph
+    capture;
   * on a CPU tensor it runs ``_ell_spmm_plain``, the same function in plain
     torch (gather, weight, sum over the P strides, ``index_add_`` of each
     pass-block into its window).
@@ -37,11 +45,15 @@ import torch
 
 from gcn_tpu_torch.ops import _build
 from gcn_tpu_torch.ops._align import aligned_rows
+from gcn_tpu_torch.tile.ell import walk_split
 
-# kernel launches of K1; each launch adds one (read by chip_smoke.py), and
-# one to the count of its width k (x's column count). These count the
-# wrapper's host calls: a call inside a CUDA graph capture counts once, and
-# the graph's replays (train/capture.py) launch K1 again without a call
+MAX_SPLIT_PARTS = 16  # K1's largest cluster (non-portable above 8)
+
+# calls of K1; each adds one (read by chip_smoke.py), and one to the count
+# of its width k (x's column count). These count the wrapper's host calls,
+# each one or two kernel launches (``WalkSplit.launches``): a call inside a
+# CUDA graph capture counts once, and the graph's replays
+# (train/capture.py) launch K1 again without a call
 spmm_ell_launches = 0
 spmm_ell_launches_by_k = {}
 
@@ -56,8 +68,11 @@ def _kernel_library():
         vp = ctypes.c_void_p
         i32 = ctypes.c_int32
         lib.gcn_ell_spmm.restype = ctypes.c_int
-        lib.gcn_ell_spmm.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32, i32,
-                                     i32, i32, i32, vp]
+        lib.gcn_ell_spmm.argtypes = [vp, i32, vp, vp, vp, vp, vp, i32, i32,
+                                     vp, i32, vp, i32, i32, i32, i32, i32,
+                                     i32, vp]
+        lib.gcn_ell_max_clusters.restype = ctypes.c_int
+        lib.gcn_ell_max_clusters.argtypes = [i32, i32, i32]
         _lib = lib
     return _lib
 
@@ -77,21 +92,63 @@ def _check_operands(x, cols, vals, win_off, n_out):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
-    """Launch K1 on the current stream; raises on anything it cannot take
-    and on a launch error. x is float32, or bfloat16 for the table_bf16
-    variant; its rows must be contiguous, and any other row stride or
-    alignment than K1's vector loads take is copied (``aligned_rows``)."""
+def max_clusters(n_parts, r=128, p=4):
+    """How many clusters of ``n_parts`` thread blocks of K1's heavy-window
+    kernel the current card holds at once (``cudaOccupancyMaxActiveClusters``
+    at rows of ``r`` and pass-blocks of ``p`` slots); 0 when none fit.
+    Builds K1 on first use; on the card only."""
+    n = _kernel_library().gcn_ell_max_clusters(n_parts, r, p)
+    if n < 0:
+        raise RuntimeError(f"K1 occupancy query failed: CUDA error {-n}")
+    return n
+
+
+def _plan_of(win_off, p, plan, device):
+    """The walk split plan's (heavy, parts, light): those of ``plan`` (a
+    ``WalkSplit``), or of one made from ``win_off`` (pass-blocks of ``p``
+    slots) on the host for ``device`` when it is None, outside a CUDA graph
+    capture."""
+    if plan is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "K1 needs its walk split plan under a CUDA graph capture "
+                "(making one reads win_off back to the host): pass plan= "
+                "(EllAdj.split / t_split)")
+        plan = walk_split(win_off.cpu().numpy(), p, device)
+    return plan.heavy, plan.parts, plan.light
+
+
+def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False,
+                     plan=None):
+    """Launch K1 on the current stream, its heavy windows on a side stream
+    forked from it; raises on anything it cannot take and on a launch
+    error. x is float32, or bfloat16 for the table_bf16 variant; its rows
+    must be contiguous, and any other row stride or alignment than K1's
+    vector loads take is copied (``aligned_rows``). ``plan``: the walk
+    split plan of ``win_off`` (``_plan_of``)."""
     global spmm_ell_launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("K1 takes float32 or bfloat16 x")
     if vals.dtype != torch.float32:
         raise TypeError("K1 takes float32 vals")
-    if cols.dtype != torch.int32 or win_off.dtype != torch.int32:
-        raise TypeError("K1 takes int32 cols and win_off")
-    for name, t in (("cols", cols), ("vals", vals), ("win_off", win_off)):
+    heavy, parts, light = _plan_of(win_off, cols.shape[1], plan, x.device)
+    for name, t in (("cols", cols), ("win_off", win_off), ("heavy", heavy),
+                    ("parts", parts), ("light", light)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"K1 takes int32 {name}")
+    for name, t in (("cols", cols), ("vals", vals), ("win_off", win_off),
+                    ("heavy", heavy), ("parts", parts), ("light", light)):
         if not t.is_contiguous():
             raise ValueError(f"K1 needs a contiguous {name}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    nw = win_off.shape[0] - 1
+    if (parts.dim() != 2 or parts.shape[0] != heavy.shape[0]
+            or not 2 <= parts.shape[1] <= MAX_SPLIT_PARTS + 1
+            or heavy.shape[0] + light.shape[0] != nw):
+        raise ValueError(f"the walk split plan must list each of the {nw} "
+                         f"windows once, with 2 to {MAX_SPLIT_PARTS + 1} "
+                         f"part offsets for a heavy one")
     r = cols.shape[2]
     if r % 4 or cols.data_ptr() % 16 or vals.data_ptr() % 16:
         raise ValueError("K1 copies cols/vals 16 bytes at a time: R must be "
@@ -106,7 +163,9 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.gcn_ell_spmm(
         x.data_ptr(), ldx, cols.data_ptr(), vals.data_ptr(),
-        win_off.data_ptr(), out.data_ptr(), n_out, r, cols.shape[1], k,
+        win_off.data_ptr(), heavy.data_ptr(), parts.data_ptr(),
+        heavy.shape[0], parts.shape[1] - 1, light.data_ptr(), light.shape[0],
+        out.data_ptr(), n_out, r, cols.shape[1], k,
         int(x.dtype == torch.bfloat16), int(products_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 (ell_spmm) launch failed: CUDA error {rc}")
@@ -133,15 +192,56 @@ def _ell_spmm_plain(x, cols, vals, win, win_off, n_out,
     return out.reshape(-1, k)[:n_out]
 
 
+def _ell_spmm_plain_split(x, cols, vals, win_off, plan, n_out,
+                          products_bf16=False):
+    """K1's function as the walk split plan shares it out, in plain torch:
+    each light window's pass-blocks and each heavy window's part summed
+    apart (the pass-block products as ``_ell_spmm_plain`` takes them), then
+    a heavy window's part sums added in rank order (``index_add_``'s order
+    on the CPU; on the card it adds atomically). ``plan`` is a
+    ``WalkSplit`` on any device. Equal to
+    ``_ell_spmm_plain`` up to reassociation when the plan covers each
+    pass-block once; a check of the plan, not a kernel's version."""
+    heavy, parts, light = (t.cpu().long() for t in _plan_of(
+        win_off, cols.shape[1], plan, x.device))
+    off = win_off.cpu().long()
+    nw, r, k = off.shape[0] - 1, cols.shape[2], x.shape[1]
+    prod = (x[cols] * vals.unsqueeze(-1)).sum(dim=1)          # (nb, r, k)
+    if products_bf16:
+        prod = prod.to(torch.bfloat16).to(prod.dtype)
+    # segment of each pass-block: a light window, or one part of a heavy
+    # one; segments of a window are numbered in rank order
+    seg_of_block = torch.full((prod.shape[0],), -1, dtype=torch.long)
+    seg_win = []
+    for w in light.tolist():
+        seg_of_block[off[w]:off[w + 1]] = len(seg_win)
+        seg_win.append(w)
+    for h, w in enumerate(heavy.tolist()):
+        for q in range(parts.shape[1] - 1):
+            lo, hi = (off[w] + parts[h, q:q + 2]).tolist()
+            seg_of_block[lo:hi] = len(seg_win)
+            seg_win.append(w)
+    seg = seg_of_block.to(x.device)
+    sums = torch.zeros((len(seg_win), r, k), dtype=prod.dtype,
+                       device=x.device)
+    sums.index_add_(0, seg[seg >= 0], prod[seg >= 0])
+    out = torch.zeros((nw, r, k), dtype=prod.dtype, device=x.device)
+    out.index_add_(0, torch.tensor(seg_win, device=x.device), sums)
+    return out.reshape(-1, k)[:n_out]
+
+
 def ell_spmm(x, cols, vals, win, win_off, n_out, *, table_bf16=False,
-             products_bf16=False):
+             products_bf16=False, plan=None):
     """out (n_out, k) = A @ x on one direction of the ELL layout: K1 for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    CUDA tensor, shared out by the walk split ``plan`` (a ``WalkSplit``,
+    made from ``win_off`` when None, outside a capture), the plain version
+    for a CPU tensor (which needs no plan)."""
     _check_operands(x, cols, vals, win_off, n_out)
     if x.is_cuda:
         if table_bf16:
             x = x.to(torch.bfloat16)
-        return _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16)
+        return _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16,
+                                plan)
     if table_bf16:
         x = x.to(torch.bfloat16).float()
     return _ell_spmm_plain(x, cols, vals, win, win_off, n_out, products_bf16)
@@ -206,7 +306,7 @@ class _SpmmEll(torch.autograd.Function):
         ctx.save_for_backward(x, vals)
         out = ell_spmm(x, adj.cols, vals, adj.win, adj.win_off,
                        adj.row_space, table_bf16=adj.table_bf16,
-                       products_bf16=adj.products_bf16)
+                       products_bf16=adj.products_bf16, plan=adj.split)
         return _hub_epilogue(out, adj)
 
     @staticmethod
@@ -219,7 +319,7 @@ class _SpmmEll(torch.autograd.Function):
             dx = ell_spmm(g, adj.t_cols, adj.t_vals, adj.t_win,
                           adj.t_win_off, adj.t_row_space,
                           table_bf16=adj.table_bf16,
-                          products_bf16=adj.products_bf16)
+                          products_bf16=adj.products_bf16, plan=adj.t_split)
             dx = _hub_epilogue(dx, adj, t=True)
         if ctx.needs_input_grad[1]:
             if adj.n_hub:

@@ -506,7 +506,8 @@ def build_sharded_ell(sg: ShardedGraph, plan, *, r: int = None,
     from gcn_tpu_torch.tile.ell import (EllAdj, _MAX_REDUCE_SEGMENTS,
                                         _ell_arrays, _guard_spans,
                                         _quantize_passes, _span_plan,
-                                        _win_offsets, _window_passes)
+                                        _win_offsets, _window_passes,
+                                        walk_split)
     from gcn_tpu_torch.utils.device import resolve_device
 
     if part not in ("all", "interior", "boundary"):
@@ -572,11 +573,14 @@ def build_sharded_ell(sg: ShardedGraph, plan, *, r: int = None,
         cols, vals, win, spans = layout(graphs[d], rps, pf)
         t_cols, t_vals, t_win, t_spans = layout(graphs[d].transpose(),
                                                 n_cols, pt)
+        win_off = _win_offsets(win, len(pf))
+        t_win_off = _win_offsets(t_win, len(pt))
         adjs.append(EllAdj(
             cols=dev(cols), vals=dev(vals), win=dev(win),
-            win_off=dev(_win_offsets(win, len(pf))), t_cols=dev(t_cols),
+            win_off=dev(win_off), t_cols=dev(t_cols),
             t_vals=dev(t_vals), t_win=dev(t_win),
-            t_win_off=dev(_win_offsets(t_win, len(pt))), n_rows=rps,
+            t_win_off=dev(t_win_off), split=walk_split(win_off, p, device),
+            t_split=walk_split(t_win_off, p, device), n_rows=rps,
             n_cols=n_cols, nnz=graphs[d].nnz, r=r, k_pad=k_pad,
             symmetric=False, products_bf16=products_bf16,
             chunks=((0, cols.shape[0], 0, -(-rps // r)),),
@@ -643,7 +647,7 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan, *,
     from gcn_tpu_torch.graph.csr import coo_to_csr
     from gcn_tpu_torch.tile.ell import (EllAdj, _ell_arrays, _guard_spans,
                                         _span_plan, _win_offsets,
-                                        _window_passes)
+                                        _window_passes, walk_split)
     from gcn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -743,12 +747,16 @@ def build_sharded_ell_blocks(sg: ShardedGraph, plan, *,
         bwd, t_win, t_spans = layout_transpose(which, n_cols_part)
         nw_t = max(1, -(-n_cols_part // r))
         win_d, t_win_d = dev(win), dev(t_win)
-        win_off = dev(_win_offsets(win, nw))
-        t_win_off = dev(_win_offsets(t_win, nw_t))
+        win_off = _win_offsets(win, nw)
+        t_win_off = _win_offsets(t_win, nw_t)
+        split, t_split = (walk_split(win_off, p, device),
+                          walk_split(t_win_off, p, device))
+        win_off, t_win_off = dev(win_off), dev(t_win_off)
         parts.append([EllAdj(
             cols=dev(cols), vals=dev(vals), win=win_d, win_off=win_off,
             t_cols=dev(t_cols), t_vals=dev(t_vals), t_win=t_win_d,
-            t_win_off=t_win_off, n_rows=rps, n_cols=n_cols_part,
+            t_win_off=t_win_off, split=split, t_split=t_split, n_rows=rps,
+            n_cols=n_cols_part,
             nnz=int((vals != 0).sum()), r=r, k_pad=k_pad, symmetric=False,
             products_bf16=products_bf16,
             chunks=((0, cols.shape[0], 0, nw),),

@@ -60,7 +60,7 @@ DEFAULTS = dict(
     chips_per_host=8,
     feat_width=32,
     bytes_per_elt=4,
-    spmm_edges_per_s=3.3446e10,
+    spmm_edges_per_s=3.3740e10,
     bw_ici=4.8398e10,
     bw_dcn=5.0e10,
 )
@@ -310,7 +310,7 @@ FULLSTEP_DEFAULTS = dict(
     nfeat=128,        # synth-arxiv feature width (data/registry.py)
     nhid=128,         # a realistic hidden width
     nclass=40,
-    mxu_flops=1.2741e13,  # the capture's f32 matmul flop/s at the
+    mxu_flops=1.2573e13,  # the capture's f32 matmul flop/s at the
                        # full step's shapes, TF32 off (NVIDIA H100 80GB
                        # HBM3, 700.00 W; time_sharded.py)
     exchange_chunk=32,  # = ELL k_pad; train_step's default
@@ -318,8 +318,8 @@ FULLSTEP_DEFAULTS = dict(
 )
 # the capture's (blocks_over_plain, sharded_over_plain) by tier (NVIDIA
 # H100 80GB HBM3, 700.00 W; time_sharded.py), used only without it
-KERNEL_SCALES = {"k_pad_32": (63.573, 62.881),
-                 "k_pad_128": (23.641, 23.659)}
+KERNEL_SCALES = {"k_pad_32": (10.621, 8.987),
+                 "k_pad_128": (3.636, 3.116)}
 
 
 def _ceil_to(x: int, m: int) -> int:

@@ -16,7 +16,11 @@ whole product whatever branch the TPU path would take, so ``spans`` and
 ``chunks`` are kept as metadata (and for parity) but steer nothing here.
 The kernel walks each window's pass-blocks through ``win_off``
 (num_windows + 1, the first block of each window), which takes the place
-of the TPU's scalar-prefetched ``win``.
+of the TPU's scalar-prefetched ``win``, and shares the walks out by the
+walk split plan (``walk_split_plan``, ``EllAdj.split``) made here on the
+host with the layout: a window that walks more than half the per-SM mean
+of pass-blocks, and more than 16 of K1's steps, is cut across a thread
+block cluster.
 """
 
 from __future__ import annotations
@@ -29,14 +33,57 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.graph.csr import CSRGraph
+from gcn_tpu_torch.tile.format import sm_count
 from gcn_tpu_torch.utils.device import resolve_device
 
 DEFAULT_R = 128      # rows per output window
 DEFAULT_K_PAD = 32   # feature lanes per slot; P = 128 // k_pad slots/row
 DEFAULT_CHUNK_SLOTS = 8_000_000
 
+WALK_SPLIT_PARTS = 8  # K1's thread blocks a heavy window: one cluster
+                      # (portable; 16 was slower at P = 2 and 1, PERF.md)
+MIN_SPLIT_STEPS = 16  # K1's steps (max(P, 4) slot rows) a walk takes whole
+
 _TENSORS = ("cols", "vals", "win", "win_off", "t_cols", "t_vals", "t_win",
             "t_win_off", "virt_map", "t_virt_map", "hub_idx", "t_hub_idx")
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkSplit:
+    """K1's walk split plan of one direction, on the device of its layout
+    (``walk_split_plan``): ``heavy`` int32 (n_heavy,) and ``light`` int32
+    (n_light,) list the windows, ``parts`` int32 (n_heavy, C + 1) each heavy
+    window's pass-block offsets from its first block, C the cluster size;
+    ``walk`` is the longest walk of one thread block under the plan, in
+    pass-blocks. The counts are the tensors' shapes, known on the host."""
+
+    heavy: torch.Tensor
+    parts: torch.Tensor
+    light: torch.Tensor
+    walk: int
+
+    @property
+    def n_heavy(self) -> int:
+        return self.heavy.shape[0]
+
+    @property
+    def n_light(self) -> int:
+        return self.light.shape[0]
+
+    @property
+    def clusters(self) -> int:
+        """C, the thread blocks of a heavy window's cluster."""
+        return self.parts.shape[1] - 1
+
+    @property
+    def launches(self) -> int:
+        """K1's kernel launches a call: one a non-empty list."""
+        return int(self.n_heavy > 0) + int(self.n_light > 0)
+
+    def to(self, device) -> "WalkSplit":
+        return dataclasses.replace(self, heavy=self.heavy.to(device),
+                                   parts=self.parts.to(device),
+                                   light=self.light.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +98,8 @@ class EllAdj:
     None when no hub row was split; ``hub_idx`` / ``hub_steps`` are the
     same split as the fold's fixed-order plan (``hub_fold_plan``).
     ``tiler`` / ``t_tiler``: the host route that laid out each direction
-    (``tile_route``).
+    (``tile_route``). ``split`` / ``t_split``: K1's walk split plan of each
+    direction (``walk_split``), aliased when symmetric.
     """
 
     cols: torch.Tensor
@@ -87,6 +135,8 @@ class EllAdj:
     t_hub_idx: Optional[torch.Tensor] = None
     hub_steps: tuple = ()
     t_hub_steps: tuple = ()
+    split: Optional[WalkSplit] = None
+    t_split: Optional[WalkSplit] = None
 
     @property
     def p(self) -> int:
@@ -132,16 +182,20 @@ class EllAdj:
                     break
             else:
                 moved[name] = t.to(device)
+        if self.split is not None:
+            moved["split"] = self.split.to(device)
+            moved["t_split"] = (moved["split"] if self.t_split is self.split
+                                else self.t_split.to(device))
         return dataclasses.replace(self, **moved)
 
     def validate(self) -> None:
         """Host-side format-invariant walker; raises AssertionError on the
         first violated invariant. Not for the hot path."""
-        for name, cols, vals, win, win_off, n_cols, spans in (
+        for name, cols, vals, win, win_off, n_cols, spans, split in (
                 ("fwd", self.cols, self.vals, self.win, self.win_off,
-                 self.n_cols, self.spans),
+                 self.n_cols, self.spans, self.split),
                 ("bwd", self.t_cols, self.t_vals, self.t_win, self.t_win_off,
-                 self.n_rows, self.t_spans)):
+                 self.n_rows, self.t_spans, self.t_split)):
             cols_h = cols.cpu().numpy()
             vals_h = vals.cpu().numpy()
             win_h = win.cpu().numpy()
@@ -166,6 +220,10 @@ class EllAdj:
                 assert (win_h[b0:b1] == np.repeat(
                     np.arange(ws, we), pw)).all(), \
                     f"{name}: span/window mismatch"
+            if split is not None:
+                check_walk_split(win_off.cpu().numpy(),
+                                 *(t.cpu().numpy() for t in (
+                                     split.heavy, split.parts, split.light)))
         for name, vm, n_hub, n_virt, n_real, idx, steps in (
                 ("fwd", self.virt_map, self.n_hub, self.n_virt, self.n_rows,
                  self.hub_idx, self.hub_steps),
@@ -264,6 +322,74 @@ def hub_fold_plan(virt_map: np.ndarray):
         idx.append(np.where(m[:h] > c, first[:h] + c, len(vm)))
         steps.append(h)
     return np.concatenate(idx).astype(np.int64), tuple(steps)
+
+
+def default_split_blocks(win_off: np.ndarray, num_sms: int, p: int) -> int:
+    """K1's split threshold, in pass-blocks of ``p`` slots: half the per-SM
+    mean of the direction's pass-blocks, all of them over the card's
+    ``num_sms`` SMs (K2's rule, ``tile/tiler.py::default_split_slots``,
+    counted in pass-blocks and halved), and never below a walk of
+    ``MIN_SPLIT_STEPS`` of K1's steps (max(P, 4) slot rows each). With
+    clusters of 8, half the mean was the fastest of 0.25, 0.5, 1 and 2
+    times it on synth-arxiv's serving layouts at P = 4, 2 and 1; a walk of
+    16 steps or fewer ran faster whole (``time_kernels.py --walk-split``
+    and ``--hgnn-layouts``, PERF.md)."""
+    half_mean = -(-int(win_off[-1]) // (2 * num_sms))
+    return max(half_mean, MIN_SPLIT_STEPS * max(p, 4) // p)
+
+
+def walk_split_plan(win_off: np.ndarray, num_sms: int, p: int,
+                    parts: int = WALK_SPLIT_PARTS,
+                    split_blocks: Optional[int] = None):
+    """K1's walk split plan for one direction of pass-blocks of ``p``
+    slots: (heavy, parts, light).
+
+    ``heavy`` int32 lists the windows that walk more than ``split_blocks``
+    pass-blocks (``default_split_blocks`` by default), ``light`` int32 the
+    others, both ascending. Heavy window ``heavy[h]`` is walked by ``parts``
+    thread blocks of one cluster; block q covers its pass-blocks
+    ``[parts[h, q], parts[h, q + 1])``, counted from the window's first
+    block: contiguous, ascending, equal shares but the last.
+    """
+    if split_blocks is None:
+        split_blocks = default_split_blocks(win_off, num_sms, p)
+    nblk = np.diff(np.asarray(win_off, np.int64))
+    heavy = np.flatnonzero(nblk > split_blocks).astype(np.int32)
+    light = np.flatnonzero(nblk <= split_blocks).astype(np.int32)
+    total = nblk[heavy]
+    share = -(-total // parts)
+    offs = np.minimum(total[:, None], share[:, None] * np.arange(parts + 1))
+    return heavy, offs.astype(np.int32), light
+
+
+def check_walk_split(win_off, heavy, parts, light) -> None:
+    """Raise AssertionError unless the plan lists every window of
+    ``win_off`` once, each list ascending, and each heavy window's parts
+    tile its pass-blocks in ascending order."""
+    nblk = np.diff(np.asarray(win_off, np.int64))
+    both = np.concatenate([heavy, light])
+    assert np.array_equal(np.sort(both), np.arange(len(nblk))), \
+        "walk split: every window once"
+    assert (np.diff(heavy) > 0).all() and (np.diff(light) > 0).all(), \
+        "walk split: windows ascending"
+    assert parts.ndim == 2 and parts.shape[0] == len(heavy) \
+        and parts.shape[1] >= 2, "walk split: part offsets"
+    assert (parts[:, 0] == 0).all() and (np.diff(parts, axis=1) >= 0).all() \
+        and np.array_equal(parts[:, -1], nblk[heavy]), \
+        "walk split: parts tile each heavy window"
+
+
+def walk_split(win_off: np.ndarray, p: int, device, **kw) -> WalkSplit:
+    """``walk_split_plan`` for the SMs of ``device`` (``sm_count``), its
+    arrays on ``device``; ``kw`` goes to the plan."""
+    device = torch.device(device)
+    heavy, parts, light = walk_split_plan(win_off, sm_count(device), p,
+                                          **kw)
+    nblk = np.diff(np.asarray(win_off, np.int64))
+    walk = max(int(nblk[light].max(initial=0)),
+               int(np.diff(parts, axis=1).max(initial=0)))
+    return WalkSplit(*(torch.from_numpy(a).to(device)
+                       for a in (heavy, parts, light)), walk=walk)
 
 
 def _window_passes(indptr: np.ndarray, n: int, r: int, p: int) -> np.ndarray:
@@ -525,6 +651,8 @@ def ell_adjacency(
     keys = ("cols", "vals", "win", "win_off", "virt_map", "hub_idx")
     arrays = {key: dev(fwd[key]) for key in keys}
     t_arrays = arrays if symmetric else {key: dev(bwd[key]) for key in keys}
+    split = walk_split(fwd["win_off"], p, device)
+    t_split = split if symmetric else walk_split(bwd["win_off"], p, device)
     return EllAdj(
         cols=arrays["cols"], vals=arrays["vals"], win=arrays["win"],
         win_off=arrays["win_off"],
@@ -541,4 +669,5 @@ def ell_adjacency(
         tiler=fwd["tiler"], t_tiler=bwd["tiler"],
         hub_idx=arrays["hub_idx"], t_hub_idx=t_arrays["hub_idx"],
         hub_steps=fwd["hub_steps"], t_hub_steps=bwd["hub_steps"],
+        split=split, t_split=t_split,
     )

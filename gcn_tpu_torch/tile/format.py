@@ -49,6 +49,17 @@ SPLIT_PARTS = 8   # K2's thread blocks a heavy window: one cluster
 NUM_SMS = 132     # SMs of an H100 SXM: the split plan of a layout built
                   # off the card
 
+
+def sm_count(device) -> int:
+    """The SMs of ``device`` that a split plan shares work over: the
+    card's own, or an H100's (``NUM_SMS``) for a layout built off the
+    card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return NUM_SMS
+
+
 _TENSORS = ("cols", "vals", "local_row", "row_base", "win_off", "heavy",
             "heavy_parts", "light", "t_cols", "t_vals", "t_local_row",
             "t_row_base", "t_win_off", "t_heavy", "t_heavy_parts", "t_light")

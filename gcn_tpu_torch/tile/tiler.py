@@ -15,7 +15,7 @@ import torch
 
 from gcn_tpu_torch.graph.csr import CSRGraph
 from gcn_tpu_torch.tile.format import (BLOCK_PAD, DEFAULT_NB, DEFAULT_R,
-                                       NUM_SMS, SPLIT_PARTS, PanelAdj)
+                                       SPLIT_PARTS, PanelAdj, sm_count)
 from gcn_tpu_torch.utils.device import resolve_device
 
 
@@ -106,8 +106,7 @@ def panel_adjacency(
     device = resolve_device(device)
     if symmetric is None:
         symmetric = g.shape[0] == g.shape[1] and g.is_symmetric()
-    num_sms = (torch.cuda.get_device_properties(device).multi_processor_count
-               if device.type == "cuda" else NUM_SMS)
+    num_sms = sm_count(device)
 
     def dev(arrays):
         return tuple(torch.from_numpy(a).to(device) for a in arrays)

@@ -19,7 +19,8 @@ CUDA events around every call, under two chains:
     host is done enqueueing before the card reaches it and the events read
     device time (``utils/chain_timing.py::chain_ms``).
 
-K1 is called through ``ell_spmm`` on the forward arrays, K2 through
+K1 is called through ``ell_spmm`` on the forward arrays (with the
+layout's walk split plan where the package has one), K2 through
 ``spmm_panel`` (its differentiable entry, under ``no_grad``), whose
 signatures every version of the package shares. Prints one JSON line per
 ROOT, then the card's name and power limit.
@@ -32,8 +33,21 @@ hypergraph on the first 64 feature columns), in three layouts: as
 ``HGNN._lower`` tiles it (rows in the hypergraph's order, k_pad 128), and two
 the model does not build: G degree-sorted (padding cut, hub rows split, as
 GCN v6's graph is) at k_pad 128 and at k_pad 32, beside ``torch.sparse.mm``
-on the same CSR. Prints one line per layout, then the card's name and power
+on the same CSR, each under the layout's walk split plan and with no
+window split. Prints one line per layout, then the card's name and power
 limit.
+
+    python3 gcn_tpu_torch/time_kernels.py --walk-split
+
+times K1 at k = k_pad on synth-arxiv's serving layouts (seed 0, rabbit and
+the degree sort, ``span_pass_limit=0``: no hub split) at k_pad 32, 64 and
+128 under walk split plans of clusters of C = 1 (no split), 8 and 16
+(non-portable) thread blocks and thresholds of 0.25, 0.5, 1 and 2 times
+the per-SM mean of pass-blocks (``tile/ell.py::default_split_blocks``
+takes half of it, above a floor of 16 steps),
+beside ``torch.sparse.mm``, after the resident clusters of 8 and of 16
+(``ops/ell_spmm.py::max_clusters``): the sweep that picks K1's C and
+threshold.
 """
 
 import importlib.util
@@ -93,9 +107,16 @@ def time_root(root):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(g.shape[0], 32, device=dev, generator=gen)
 
+    # the layout's walk split plan, where the package's EllAdj has one
+    if getattr(adj, "split", None) is not None:
+        plan = {"plan": adj.split}
+    else:
+        plan = {}
+
     def k1(**opts):
         return lambda v: es.ell_spmm(v, adj.cols, adj.vals, adj.win,
-                                     adj.win_off, adj.row_space, **opts)
+                                     adj.win_off, adj.row_space, **plan,
+                                     **opts)
 
     kernels = {"ell_spmm": k1(), "table_bf16": k1(table_bf16=True),
                "products_bf16": k1(products_bf16=True),
@@ -118,7 +139,8 @@ def hgnn_layouts():
                                                 generate_G_from_H)
     from gcn_tpu_torch.ops import _build
     from gcn_tpu_torch.ops import ell_spmm as es
-    from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
+    from gcn_tpu_torch.tile.ell import (degree_sort_order, ell_adjacency,
+                                        walk_split)
 
     _build.build_cuda_kernels()
     dev = torch.device("cuda")
@@ -138,13 +160,68 @@ def hgnn_layouts():
                                 ("degree-sorted", gs, 128),
                                 ("degree-sorted, k_pad 32", gs, 32)):
         a = ell_adjacency(graph, k_pad=k_pad, device=dev)
-        ms = chain_ms(lambda v: es.ell_spmm(v, a.cols, a.vals, a.win,
-                                            a.win_off, a.row_space),
-                      x, REPS)
+        whole = walk_split(a.win_off.cpu().numpy(), a.p, dev,
+                           split_blocks=1 << 30)
+        ms = {}
+        for name, plan in (("K1", a.split), ("K1 with no window split",
+                                              whole)):
+            ms[name] = chain_ms(lambda v: es.ell_spmm(
+                v, a.cols, a.vals, a.win, a.win_off, a.row_space,
+                plan=plan), x, REPS)
         print(f"  {label}: P={a.p} slots={a.cols.numel()} pad="
               f"{a.pad_fraction:.3f} max blocks/window="
-              f"{int(a.win_off.diff().max())} n_hub={a.n_hub}: K1 "
-              f"{ms:.4f} ms", flush=True)
+              f"{int(a.win_off.diff().max())} n_hub={a.n_hub}; walk split: "
+              f"{a.split.n_heavy} heavy windows in clusters of "
+              f"{a.split.clusters}, longest walk {a.split.walk}: "
+              + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items()),
+              flush=True)
+
+
+def walk_split_sweep():
+    """K1 at k = k_pad on synth-arxiv's serving layouts under walk split
+    plans of other cluster sizes and thresholds (the module docstring)."""
+    sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from gcn_tpu_torch.bench import prepared_graph
+    from gcn_tpu_torch.ops import _build
+    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.reorder import native
+    from gcn_tpu_torch.tile.ell import ell_adjacency, walk_split
+
+    _build.build_cuda_kernels()
+    _build.build_libraries({"gcnreorder": native.SOURCES}, "g++")
+    dev = torch.device("cuda")
+    for c in (8, 16):
+        print(f"clusters of {c}: {es.max_clusters(c)} resident at once "
+              f"(cudaOccupancyMaxActiveClusters, R=128, P=4)", flush=True)
+    g = prepared_graph("synth-arxiv")[1]
+    csr = g.to_torch(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for k_pad in (32, 64, 128):
+        a = ell_adjacency(g, symmetric=True, span_pass_limit=0, k_pad=k_pad,
+                          device=dev)
+        off = a.win_off.cpu().numpy()
+        fair = -(-int(off[-1]) // torch.cuda.get_device_properties(
+            dev).multi_processor_count)        # the per-SM mean
+        x = torch.randn(g.shape[0], k_pad, device=dev, generator=gen)
+        lib = chain_ms(lambda v: torch.sparse.mm(csr, v), x, REPS)
+        print(f"serving k_pad {k_pad} (P={a.p}): longest walk "
+              f"{int(a.win_off.diff().max())}, per-SM mean {fair} "
+              f"pass-blocks (the default threshold: {a.split.n_heavy} heavy "
+              f"windows, longest walk {a.split.walk}); torch.sparse.mm "
+              f"{lib:.4f} ms", flush=True)
+        for parts in (1, 8, 16):
+            for scale in ((1,) if parts == 1 else (0.25, 0.5, 1, 2)):
+                plan = walk_split(off, a.p, dev, parts=parts,
+                                  split_blocks=max(1, int(fair * scale)))
+                ms = chain_ms(lambda v: es.ell_spmm(
+                    v, a.cols, a.vals, a.win, a.win_off, a.row_space,
+                    plan=plan), x, REPS)
+                print(f"  C={parts} threshold {scale} x mean "
+                      f"({max(1, int(fair * scale))} pass-blocks): "
+                      f"{plan.n_heavy} heavy windows, longest walk "
+                      f"{plan.walk}: K1 {ms:.4f} ms", flush=True)
 
 
 def main(argv):
@@ -152,7 +229,8 @@ def main(argv):
         time_root(os.path.abspath(argv[1]))
         return 0
     layouts = argv == ["--hgnn-layouts"]
-    if not layouts and (not argv or argv[0].startswith("-")):
+    sweep = argv == ["--walk-split"]
+    if not (layouts or sweep) and (not argv or argv[0].startswith("-")):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -162,6 +240,8 @@ def main(argv):
         return 2
     if layouts:
         hgnn_layouts()
+    elif sweep:
+        walk_split_sweep()
     else:
         for root in argv:
             subprocess.run([sys.executable, os.path.abspath(__file__),

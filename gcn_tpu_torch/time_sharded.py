@@ -77,7 +77,8 @@ def k1_ms(a, x, t, reps):
         args = (a.t_cols, a.t_vals, a.t_win, a.t_win_off, a.t_row_space)
     else:
         args = (a.cols, a.vals, a.win, a.win_off, a.row_space)
-    return device_ms(lambda: es.ell_spmm(x, *args), reps)
+    plan = a.t_split if t else a.split
+    return device_ms(lambda: es.ell_spmm(x, *args, plan=plan), reps)
 
 
 def sharded_tier(g_rabbit, n_shards, k_pad, plain_rate, dev, reps,

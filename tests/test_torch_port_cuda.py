@@ -916,9 +916,9 @@ def test_captured_gcn_fit_matches_eager_on_card(cuda, layout):
     _same_fit(captured, eager)
     # the captured fit recomputes the best snapshot's log-probs at the end
     # (gcn_tpu's scan does too): one SpMM more than the eager fit, which
-    # keeps them from the snapshot's step; K2 is two launches an SpMM
-    # where both kinds of window exist
-    per_call = 2 if layout == "panel" else 1
+    # keeps them from the snapshot's step; K1 and K2 are two launches an
+    # SpMM where both kinds of window exist
+    per_call = 2 if layout == "panel" else adj.split.launches
     assert records == per_call * (host_count + 1)
 
 
@@ -1168,3 +1168,161 @@ def test_bench_on_card(cuda, capsys):
     assert all(np.isfinite(t) and t > 0 for t in times), line
     assert 0 < d["roofline_pct"] <= 100
     assert d["card"]["kind"] == torch.cuda.get_device_name(cuda)
+
+
+def _variant(option):
+    return {None: {}, "table_bf16": {"table_bf16": True},
+            "products_bf16": {"products_bf16": True},
+            "both": {"table_bf16": True, "products_bf16": True}}[option]
+
+
+def _check_k1(adj, x, plan, opts, t=False):
+    """K1 on one direction under ``plan`` against its plain version: in
+    float64 at the f32 tolerance, or (products_bf16) the f32 plain version
+    at rtol and atol 2e-2 with >= 99% of the elements at the f32
+    tolerance; returns K1's output."""
+    arrays = _ell_arrays(adj, t)
+    got = es.ell_spmm(x, *arrays, plan=plan, **opts)
+    xr = x.to(torch.bfloat16).float() if opts.get("table_bf16") else x
+    if opts.get("products_bf16"):
+        want = es._ell_spmm_plain(xr, *arrays, True)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+        assert _share_close(got, want) >= 0.99
+    else:
+        cols, vals, win, win_off, n_out = arrays
+        _close(got, es._ell_spmm_plain(xr.double(), cols, vals.double(),
+                                       win, win_off, n_out).float())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33, 128])
+@pytest.mark.parametrize("option", [None, "table_bf16", "products_bf16",
+                                    "both"])
+@pytest.mark.parametrize("k_pad", [32, 64, 128])
+def test_kernel_split_windows_match_plain_on_card(cuda, k_pad, option, k):
+    """The serving layout (no hub split) of a power-law graph: its hub
+    windows walk far past the per-SM mean and are cut across a cluster,
+    beside light windows walked whole, at P = 4, 2 and 1, in every variant,
+    forward; n_out (3000) is not a multiple of R (16)."""
+    adj = ell_adjacency(_split_graph(), r=16, k_pad=k_pad,
+                        span_pass_limit=0, device=cuda)
+    assert adj.split.n_heavy and adj.split.n_light
+    assert adj.split.walk < int(adj.win_off.diff().max())
+    x = torch.randn(adj.n_cols, k, device=cuda)
+    _check_k1(adj, x, adj.split, _variant(option))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parts", [8, 16])
+@pytest.mark.parametrize("which", ["only heavy", "only light", "default"])
+@pytest.mark.parametrize("k_pad", [32, 128])
+def test_kernel_split_plans_on_card(cuda, k_pad, which, parts):
+    """Plans that make every window heavy (one-block windows give empty
+    parts), none, or the default split, with clusters of 8 and of 16 (a
+    non-portable size), forward and through the transpose arrays of a
+    rectangular graph; two calls bit-equal; the plan's plain sums equal the
+    plain version's."""
+    from gcn_tpu_torch.tile.ell import walk_split
+
+    blocks = {"only heavy": 0, "only light": 1 << 30, "default": None}
+    g = _rect_graph(n=3000, m=1200)
+    adj = ell_adjacency(g, k_pad=k_pad, span_pass_limit=0, device=cuda)
+    x = {False: torch.randn(adj.n_cols, 40, device=cuda),
+         True: torch.randn(adj.n_rows, 40, device=cuda)}
+    for t in (False, True):
+        off = (adj.t_win_off if t else adj.win_off).cpu().numpy()
+        plan = walk_split(off, adj.p, cuda, parts=parts,
+                          split_blocks=blocks[which])
+        if which == "only heavy":
+            assert plan.n_light == 0 and plan.launches == 1
+        elif which == "only light":
+            assert plan.n_heavy == 0 and plan.launches == 1
+        for opts in ({}, {"products_bf16": True}):
+            got = _check_k1(adj, x[t], plan, opts, t)
+            again = es.ell_spmm(x[t], *_ell_arrays(adj, t), plan=plan,
+                                **opts)
+            assert torch.equal(got, again)
+        cols, vals, win, win_off, n_out = _ell_arrays(adj, t)
+        xd = x[t].double()
+        torch.testing.assert_close(
+            es._ell_spmm_plain_split(xd, cols, vals.double(), win_off, plan,
+                                     n_out),
+            es._ell_spmm_plain(xd, cols, vals.double(), win, win_off, n_out),
+            rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_kernel_split_needs_a_plan_under_capture(cuda):
+    """Without a plan K1 makes one from win_off (a read-back) eagerly, and
+    raises inside a CUDA graph capture instead of synchronising."""
+    adj = ell_adjacency(_split_graph(), k_pad=32, span_pass_limit=0,
+                        device=cuda)
+    x = torch.randn(adj.n_cols, 32, device=cuda)
+    arrays = _ell_arrays(adj)
+    eager = es.ell_spmm(x, *arrays)
+    assert torch.equal(eager, es.ell_spmm(x, *arrays, plan=adj.split))
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with pytest.raises(RuntimeError, match="plan"):
+            with torch.cuda.graph(graph, stream=stream):
+                es.ell_spmm(x, *arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pad", [32, 128])
+def test_captured_fit_over_split_windows_matches_eager_on_card(cuda, k_pad):
+    """GCN at dropout 0.5 over a layout with heavy windows (the serving
+    layout, at P = 4 and 1): inside the captured graph K1 forks its cluster
+    launch onto its side stream and joins it; the captured fit equals the
+    eager one bit for bit, and the profiler counts two kernel launches a
+    K1 call."""
+    g = _split_graph()
+    adj = ell_adjacency(g, r=16, k_pad=k_pad, span_pass_limit=0,
+                        device=cuda)
+    assert adj.split.launches == 2
+    n = g.shape[0]
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.standard_normal((n, 24)), dtype=torch.float32,
+                     device=cuda)
+    labels = torch.tensor(rng.integers(0, 5, n), device=cuda)
+    idx_train = torch.arange(0, n // 2, device=cuda)
+    idx_val = torch.arange(n // 2, n, device=cuda)
+    before = es.spmm_ell_launches
+    eager = _functional_fit(adj, x, labels, idx_train, idx_val, 12, False,
+                            cuda)
+    host_count = es.spmm_ell_launches - before
+    captured, records = _kernel_records(
+        lambda: _functional_fit(adj, x, labels, idx_train, idx_val, 12,
+                                True, cuda), "ell_spmm")
+    _same_fit(captured, eager)
+    assert records == 2 * (host_count + 1)
+
+
+@pytest.mark.cuda
+def test_captured_hgnn_fit_over_split_windows_is_bit_equal(cuda):
+    """HGNN over G (k_pad 128, P = 1), whose layout has heavy windows:
+    the captured fit's losses and output equal the eager fit's bit for
+    bit."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models import HGNN
+
+    g, _ = _hypergraph()
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((g.shape[0], 64)).astype(np.float32)
+    labels = rng.integers(0, 5, g.shape[0])
+    runs, p0 = {}, None
+    for jit_loop in (False, True):
+        m = HGNN(64, 5, n_hid=128, adj_kind="ell", milestones=(5,),
+                 device=cuda)
+        p0 = p0 if p0 is not None else params_to_numpy(m.init_params())
+        m.params = params_from_numpy(p0, cuda)
+        m.fit(x, g, labels, np.arange(400), idx_val=np.arange(400, 600),
+              num_epochs=12, jit_loop=jit_loop)
+        runs[jit_loop] = m
+    eager, captured = runs[False], runs[True]
+    assert eager.g_adj.split.n_heavy > 0
+    assert [h["loss_train"] for h in captured.history] == \
+        [h["loss_train"] for h in eager.history]
+    assert torch.equal(captured.output, eager.output)
