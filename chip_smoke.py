@@ -97,6 +97,16 @@ Phases (each failure exits non-zero):
      with K1's launches counted (the host counter eager, kernel records
      captured) and captured bit-equal to eager, and K1's time at each
      width beside its bound and torch.sparse.mm;
+     [ladder]: GCN v1-v5, which train over the COO product (``CooAdj``:
+     ``adj_kind="auto"`` past 8,192 rows) on synth-arxiv in its own order:
+     the row edge counts cover the padded edges; two products bit-equal,
+     forward and dX; the product against its float64 plain version at the
+     f32 tolerance (k=32 and 40, dX at 32); 5-step fits (dropout 0) card
+     against CPU from phase 6's parameters (rtol 1e-4); 20-step fits
+     (dropout 0.5, seed 15) captured against eager, bit-equal, K1 and K2
+     never launched; the product's time beside ``torch.sparse.mm``, the
+     bound and the former ``index_add_`` reduction (kept here only as a
+     timing reference); v4's captured and eager median step;
   9. where a v6 step's time goes: 10 more eager steps under
      torch.profiler, with K1's device ms per step;
  10. resume: 10 v6 steps, ``save_state``, 10 more from it; the 20 losses
@@ -118,7 +128,8 @@ Phases (each failure exits non-zero):
      (interior 32 and 40, halo 32 and 8); 5 steps (dropout 0) against the
      port's unsharded functional GCN on the same graph (losses at rtol
      1e-4, eval log-probs at atol 1e-4 + rtol 1e-5), the all_gather +
-     segsum baseline against the halo path (rtol 1e-4), the bf16 and fp8
+     segsum baseline against the halo path (rtol 1e-4) and two runs of 2
+     of its steps bit-equal (losses and parameters), the bf16 and fp8
      wires against f32 (rtol 0.05, atol 0.02) and fp8 with the features
      scaled by 1e4 (finite); 20 steps at dropout 0.5 with K1's launches
      equal to the count reckoned from the code (``dist_launches``), the
@@ -1183,6 +1194,18 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
     ag_l, _ = fit(agg[0], start(agg[2]), 5)
     print(f"  all_gather + segsum baseline losses {ag_l}", flush=True)
     check_close_losses("all_gather baseline vs halo", ag_l, halo_l, 1e-4)
+    # its segment sum adds each row in edge order: two runs of two steps
+    # from the same start leave the same losses and parameters, bit for bit
+    runs = [start(agg[2]) for _ in range(2)]
+    ag2 = [fit(agg[0], state, 2)[0] for state in runs]
+    same = ag2[0] == ag2[1] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            named_leaves(runs[0][0]), named_leaves(runs[1][0])))
+    print(f"  determinism all_gather baseline: two runs of 2 steps "
+          f"bit-equal (losses and parameters) -> "
+          f"{'ok' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        fail("two all_gather baseline runs differ")
 
     print("[dist wires] 5 steps, dropout 0, against the f32 wire (rtol "
           "0.05, atol 0.02)", flush=True)
@@ -2286,6 +2309,158 @@ def captured_gcn_phase(dev, data, eager, panel):
     return {"main": (records, host), "panel": (precords, phost)}
 
 
+LADDER = ("v1", "v2", "v3", "v4", "v5")
+LADDER_STEPS = 20
+
+
+def coo_index_add(adj, x, t=False):
+    """The COO product as the port had it before its fixed-order segment
+    sum: the products added with ``index_add_`` (atomic adds on the card),
+    kept here only as the [ladder] phase's timing reference; ``t`` runs it
+    over the transpose arrays. In float64 when ``x`` is (the plain
+    version the checks hold the product to)."""
+    rows, cols, vals, n_out = ((adj.t_rows, adj.t_cols, adj.t_vals,
+                                adj.n_cols) if t else
+                               (adj.rows, adj.cols, adj.vals, adj.n_rows))
+    prod = x[cols] * vals.to(x.dtype)[:, None]
+    return prod.new_zeros((n_out, x.shape[1])).index_add_(0, rows, prod)
+
+
+def ladder_phase(dev, data, p0):
+    """[ladder]: GCN v1-v5, the variants that train over the COO product
+    (``adj_kind="auto"`` resolves to ``CooAdj`` past 8,192 rows), on
+    synth-arxiv in its own vertex order (no reorder, as v1-v5 run): the
+    product's row edge counts; two calls bit-equal, forward and dX; the
+    product against its float64 plain version at the f32 tolerance; 5-step
+    fits (dropout 0) card against CPU from phase 6's parameters (rtol
+    1e-4); 20-step fits (dropout 0.5, seed 15) captured against eager, bit
+    for bit, with K1 and K2 never launched; the product's device ms beside
+    ``torch.sparse.mm`` and the former ``index_add_`` reduction, at k = 32
+    and 40 (layer 2's widths at hidden 32); v4's captured and eager median
+    step. Returns a summary dict, printed as one JSON line."""
+    import torch
+
+    from gcn_tpu_torch.convert import params_from_numpy
+    from gcn_tpu_torch.graph.normalize import gcn_normalize
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops import panel_spmm as ps
+    from gcn_tpu_torch.ops.adjacency import CooAdj, device_adjacency
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    t0 = time.time()
+    nfeat, nhid, ncls = data.num_features, 32, data.num_classes
+    g = gcn_normalize(data.adj)
+    # what GCN v1-v5 build: no reorder, kind "auto" past 8,192 rows
+    adj = device_adjacency(g, "auto", device=dev, symmetric=True)
+    if not isinstance(adj, CooAdj):
+        fail(f"'auto' built {type(adj).__name__} on synth-arxiv, not CooAdj")
+    row_len = adj.row_len.cpu().numpy()
+    e_pad = adj.rows.numel()
+    print(f"[ladder] GCN v1-v5 on synth-arxiv (own order, n={adj.n_rows}, "
+          f"nnz={adj.nnz}): CooAdj of {e_pad} padded edges, row edge "
+          f"counts sum {int(row_len.sum())}, longest row {row_len.max()}, "
+          f"{int((row_len == 0).sum())} empty rows ({time.time() - t0:.1f}s)",
+          flush=True)
+    if int(row_len.sum()) != e_pad or (row_len < 0).any():
+        fail("the COO row edge counts do not cover the padded edges")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = {k: torch.randn(adj.n_cols, k, device=dev, generator=gen)
+          for k in (32, 40)}
+    ct = torch.randn(adj.n_rows, 32, device=dev, generator=gen)
+
+    def dx(x):
+        xg = x.clone().requires_grad_(True)
+        return torch.autograd.grad(spmm(adj, xg), xg, ct)[0]
+
+    check_repeat("COO spmm fwd k=32", lambda: spmm(adj, xs[32]))
+    check_repeat("COO spmm dX k=32", lambda: dx(xs[32]))
+    errs = [compare(f"COO spmm fwd k={k}", spmm(adj, x),
+                    coo_index_add(adj, x.double()))
+            for k, x in xs.items()]
+    errs.append(compare("COO spmm dX k=32 (transpose arrays)", dx(xs[32]),
+                        coo_index_add(adj, ct.double(), t=True)))
+    atomic_same = torch.equal(coo_index_add(adj, xs[32]),
+                              coo_index_add(adj, xs[32]))
+    print(f"  the former index_add_ reduction's two calls bit-equal: "
+          f"{atomic_same} (atomic adds)", flush=True)
+
+    print("[ladder] 5-step fits, dropout 0, card vs cpu from phase 6's "
+          "parameters", flush=True)
+    for v in LADDER:
+        hist = {}
+        for device in (dev, "cpu"):
+            t1 = time.time()
+            m = GCN(nfeat, nhid, ncls, dropout=0.0, variant=v, seed=SEED,
+                    device=device)
+            m.params = params_from_numpy(p0, device)
+            m.fit(data.features, data.adj, data.labels, data.idx_train,
+                  train_iters=5, initialize=False, jit_loop=False)
+            hist[str(device)] = (losses_of(m), time.time() - t1)
+        print(f"  {v}: cuda {hist[str(dev)][0]} ({hist[str(dev)][1]:.1f}s); "
+              f"cpu {hist['cpu'][1]:.1f}s", flush=True)
+        check_close_losses(f"{v} card vs cpu", hist[str(dev)][0],
+                           hist["cpu"][0], 1e-4)
+
+    print(f"[ladder] {LADDER_STEPS}-step fits, dropout 0.5, seed {SEED}: "
+          f"the default captured flavor against the eager one", flush=True)
+    steps_ms = {}
+    for v in LADDER:
+        runs = {}
+        for jit_loop in (False, True):
+            reset_launches()
+            m = GCN(nfeat, nhid, ncls, variant=v, seed=SEED, device=dev)
+            m.fit(data.features, data.adj, data.labels, data.idx_train,
+                  train_iters=LADDER_STEPS, jit_loop=jit_loop)
+            torch.cuda.synchronize()
+            if read_launches()[0] or ps.spmm_panel_launches:
+                fail(f"{v} launched K1 or K2 over its CooAdj")
+            if not isinstance(m.adj_norm, CooAdj):
+                fail(f"{v} trained over {type(m.adj_norm).__name__}")
+            runs[jit_loop] = m
+        eager, cap = runs[False], runs[True]
+        if not losses_of(eager)[-1] < losses_of(eager)[0]:
+            fail(f"{v}: the loss did not fall")
+        if not torch.isfinite(eager.output).all():
+            fail(f"{v}: the output is not finite")
+        steps_ms[v] = (cap.timers("step").d.median_ms,
+                       eager.timers("step").d.median_ms)
+        print(f"  {v}: orders {eager._orders()}, loss "
+              f"{losses_of(eager)[0]:.4f} -> {losses_of(eager)[-1]:.4f}, "
+              f"test accuracy {eager.test(data.idx_test, verbose=False):.4f}",
+              flush=True)
+        captured_report(f"{v} step", (losses_of(cap), cap.output),
+                        (losses_of(eager), eager.output), steps_ms[v],
+                        exact=True)
+        if not torch.equal(cap._rng_state, eager._rng_state):
+            fail(f"{v}: the captured fit leaves another dropout stream")
+
+    print("[ladder] the COO product's time on the card (median of 30 "
+          "chained calls)", flush=True)
+    csr = g.to_torch(dev)
+    times = {}
+    for k, x in xs.items():
+        times[k] = {
+            "coo_ms": chain_ms(lambda y: spmm(adj, y), x, 30),
+            "index_add_ms": chain_ms(lambda y: coo_index_add(adj, y), x, 30),
+            "sparse_mm_ms": chain_ms(lambda y: torch.sparse.mm(csr, y), x,
+                                     30),
+            "bound_ms": least_ms(*spmm_work(adj.nnz, 0, adj.n_cols,
+                                            adj.n_rows, k))[0]}
+        r = times[k]
+        print(f"  k={k}: segment sum {r['coo_ms']:.4f} ms | the former "
+              f"index_add_ {r['index_add_ms']:.4f} ms | torch.sparse.mm "
+              f"{r['sparse_mm_ms']:.4f} ms | bound {r['bound_ms']:.5f} ms",
+              flush=True)
+    print(f"  v4 median step: {steps_ms['v4'][0]:.4f} ms captured, "
+          f"{steps_ms['v4'][1]:.4f} ms eager", flush=True)
+    summary = {"coo": {str(k): v for k, v in times.items()},
+               "max_abs_err": max(errs),
+               "steps_ms": {v: {"captured": c, "eager": e}
+                            for v, (c, e) in steps_ms.items()}}
+    print(f"[ladder] {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def index_add_fold(out_virt, adj):
     """The hub fold as the port had it before its fixed order: an
     ``index_add_`` over ``virt_map`` (atomic adds on the card), the
@@ -2997,6 +3172,7 @@ def main():
                            idx_train, init, panel_eager))
 
     wide_rows = wide_kpad_phase(dev, g, data)
+    ladder_phase(dev, data, p0)
 
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)

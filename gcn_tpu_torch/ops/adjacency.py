@@ -4,9 +4,10 @@ The host currency is ``gcn_tpu_torch.graph.CSRGraph`` (numpy). Before
 training it is lowered onto a device as one of:
 
   * ``DenseAdj`` — a dense matrix; SpMM is ``torch.matmul``.
-  * ``CooAdj``   — row-sorted COO padded to EDGE_PAD; SpMM is a gather and
-    ``index_add_`` (plain torch: in ``gcn_tpu`` this path is XLA, not a
-    Pallas kernel).
+  * ``CooAdj``   — row-sorted COO padded to EDGE_PAD, with each row's edge
+    count; SpMM is a gather and a sum over each row's run of edges in edge
+    order (plain torch: in ``gcn_tpu`` this path is XLA's sorted
+    ``segment_sum``, not a Pallas kernel).
   * ``EllAdj``   — the packed ELL layout of ``gcn_tpu_torch.tile.ell``,
     whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``);
   * ``FreqSplitAdj`` — two such layouts, a hot column prefix and a cold
@@ -39,11 +40,27 @@ def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
     return out
 
 
+def segment_lengths(rows: np.ndarray, n_rows: int) -> np.ndarray:
+    """Each row's edge count (int64[n_rows]) over row-sorted ``rows``: the
+    plan of the segment sum (``ops/spmm.py::segment_sum``), which adds
+    each row's run of edges in edge order. Raises unless ``rows`` is
+    sorted and in range, since the runs are read off in order (gcn_tpu's
+    ``indices_are_sorted=True``)."""
+    rows = np.asarray(rows)
+    if (np.diff(rows) < 0).any():
+        raise ValueError("segment_lengths needs row-sorted edges")
+    if rows.size and (rows[0] < 0 or rows[-1] >= n_rows):
+        raise ValueError(f"row index out of range [0, {n_rows})")
+    return np.bincount(rows, minlength=n_rows).astype(np.int64)
+
+
 @dataclasses.dataclass(frozen=True)
 class CooAdj:
     """Row-sorted COO adjacency, padded to EDGE_PAD with ``vals == 0`` and
     in-range indices (last row / column 0). ``t_*`` hold the transpose,
-    aliased when symmetric."""
+    aliased when symmetric. ``row_len`` / ``t_row_len`` are each
+    direction's row edge counts (``segment_lengths``), which the SpMM sums
+    by."""
 
     rows: torch.Tensor  # int64[E_pad]
     cols: torch.Tensor  # int64[E_pad]
@@ -55,6 +72,8 @@ class CooAdj:
     n_cols: int
     nnz: int
     symmetric: bool
+    row_len: torch.Tensor    # int64[n_rows]
+    t_row_len: torch.Tensor  # int64[n_cols]
 
     @property
     def shape(self):
@@ -96,22 +115,27 @@ def _coo_arrays(g: CSRGraph, pad_to: Optional[int] = None):
 def coo_adjacency(g: CSRGraph, *, symmetric: Optional[bool] = None,
                   device=None) -> CooAdj:
     """Row-sorted COO on ``device``: the card by default
-    (``utils.device.resolve_device``), ``device="cpu"`` for the CPU."""
+    (``utils.device.resolve_device``), ``device="cpu"`` for the CPU; with
+    each direction's row edge counts (``segment_lengths``), made here on
+    the host so that the SpMM never waits for it."""
     device = resolve_device(device)
     if symmetric is None:
         symmetric = g.shape[0] == g.shape[1] and g.is_symmetric()
     rows, cols, vals, e = _coo_arrays(g)
-    rows, cols, vals = (torch.from_numpy(a).to(device)
-                        for a in (rows, cols, vals))
+    rows, cols, vals, row_len = (
+        torch.from_numpy(a).to(device)
+        for a in (rows, cols, vals, segment_lengths(rows, g.shape[0])))
     if symmetric:
-        t_rows, t_cols, t_vals = rows, cols, vals
+        t_rows, t_cols, t_vals, t_row_len = rows, cols, vals, row_len
     else:
         tr, tc, tv, _ = _coo_arrays(g.transpose(), pad_to=rows.shape[0])
-        t_rows, t_cols, t_vals = (torch.from_numpy(a).to(device)
-                                  for a in (tr, tc, tv))
+        t_rows, t_cols, t_vals, t_row_len = (
+            torch.from_numpy(a).to(device)
+            for a in (tr, tc, tv, segment_lengths(tr, g.shape[1])))
     return CooAdj(rows=rows, cols=cols, vals=vals, t_rows=t_rows,
                   t_cols=t_cols, t_vals=t_vals, n_rows=g.shape[0],
-                  n_cols=g.shape[1], nnz=e, symmetric=bool(symmetric))
+                  n_cols=g.shape[1], nnz=e, symmetric=bool(symmetric),
+                  row_len=row_len, t_row_len=t_row_len)
 
 
 def dense_adjacency(g: CSRGraph, device=None) -> DenseAdj:

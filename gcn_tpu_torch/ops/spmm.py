@@ -3,8 +3,10 @@
 One differentiable entry point, ``spmm(adj, x)``, for every representation:
 
   * ``DenseAdj`` — ``torch.matmul``;
-  * ``CooAdj``   — gather + ``index_add_`` (``_SpmmCoo``), with the SDDMM
-    edge-weight cotangent dvals[e] = <g[row_e], x[col_e]>;
+  * ``CooAdj``   — gather, then each row's run of edges summed in edge
+    order (``segment_sum``, gcn_tpu's sorted ``segment_sum``; no atomics,
+    so two calls are bit-equal), with the SDDMM edge-weight cotangent
+    dvals[e] = <g[row_e], x[col_e]>;
   * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``);
   * ``FreqSplitAdj`` — K1 on each of its two tables
     (``tile/freq_split.py``);
@@ -24,10 +26,22 @@ import torch
 from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj
 
 
-def _segment_spmm(rows, cols, vals, x, m):
-    """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]]."""
-    out = x.new_zeros((m, x.shape[1]))
-    return out.index_add_(0, rows, x[cols] * vals.unsqueeze(1).to(x.dtype))
+def segment_sum(prod, row_len):
+    """out[r] = the sum of row r's run of ``prod`` rows, the runs laid end
+    to end with ``row_len[r]`` rows each (``ops.adjacency.segment_lengths``,
+    a tensor on ``prod``'s device); an empty row is 0. Each run is added
+    in order, one thread a row and column, with no atomics and no wait for
+    the host: the sum is the same from call to call and can be captured
+    into a CUDA graph, and on the CPU it is bit-equal to ``index_add_``
+    over the same sorted rows."""
+    return torch.segment_reduce(prod, "sum", lengths=row_len, axis=0,
+                                unsafe=True)
+
+
+def _segment_spmm(cols, vals, x, row_len):
+    """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]] over row-sorted
+    edges with ``row_len`` edges a row."""
+    return segment_sum(x[cols] * vals.unsqueeze(1).to(x.dtype), row_len)
 
 
 class _SpmmCoo(torch.autograd.Function):
@@ -35,7 +49,7 @@ class _SpmmCoo(torch.autograd.Function):
     def forward(ctx, x, vals, adj):
         ctx.adj = adj
         ctx.save_for_backward(x)
-        return _segment_spmm(adj.rows, adj.cols, vals, x, adj.n_rows)
+        return _segment_spmm(adj.cols, vals, x, adj.row_len)
 
     @staticmethod
     def backward(ctx, g):
@@ -43,8 +57,8 @@ class _SpmmCoo(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         dx = dvals = None
         if ctx.needs_input_grad[0]:
-            dx = _segment_spmm(adj.t_rows, adj.t_cols, adj.t_vals, g,
-                               adj.n_cols).to(x.dtype)
+            dx = _segment_spmm(adj.t_cols, adj.t_vals, g,
+                               adj.t_row_len).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dvals = (g[adj.rows] * x[adj.cols]).sum(dim=-1).to(
                 adj.vals.dtype)

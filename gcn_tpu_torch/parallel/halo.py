@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from gcn_tpu_torch.parallel.partition import ShardedGraph
+from gcn_tpu_torch.parallel.spmm_dist import local_spmm
 
 
 def _round_up(x: int, m: int) -> int:
@@ -1125,20 +1126,15 @@ def make_halo_exchange(plan, wire_dtype=None):
 # ---------------------------------------------------------------------------
 
 
-def dist_spmm_halo(shard_arrays, send_idx, x_bands, rows_per_shard, mesh,
-                   exchange):
+def dist_spmm_halo(shard_arrays, send_idx, x_bands, mesh, exchange):
     """SpMM of the owned bands with the boundary-only exchange and a
-    segment sum (``index_add``, the counterpart of XLA's segment_sum):
-    ``shard_arrays`` are the owned shards' (rows_local, col_remap, vals)."""
+    segment sum (``spmm_dist.local_spmm``, the counterpart of XLA's sorted
+    segment_sum, in a fixed order): ``shard_arrays`` are the owned shards'
+    (col_remap, vals, row_len)."""
     halos = exchange(send_idx, x_bands, mesh).wait()
-    outs = []
-    for (rows_local, col_remap, vals), halo, x in zip(shard_arrays, halos,
-                                                      x_bands):
-        table = torch.cat([halo, x])
-        gathered = table[col_remap] * vals[:, None]
-        outs.append(x.new_zeros((rows_per_shard, x.shape[1])).index_add(
-            0, rows_local, gathered))
-    return outs
+    return [local_spmm(col_remap, vals, torch.cat([halo, x]), row_len)
+            for (col_remap, vals, row_len), halo, x in zip(
+                shard_arrays, halos, x_bands)]
 
 
 def dist_spmm_halo_ell(ell, send_idx, x_bands, mesh, exchange):

@@ -6,11 +6,15 @@ rows from every band, so the baseline gathers them all within the data
 group (the ranks of one run of model indices):
 
     x_full = all_gather(owned bands)              # every band, n rows
-    out_band = local_spmm(shard, x_full)          # index_add per slot
+    out_band = local_spmm(shard, x_full)          # segment sum per slot
 
-XLA's ``segment_sum`` is no Pallas kernel, so its counterpart here is plain
-torch (``index_add``) on the card as on the CPU. The halo exchange
-(``parallel/halo.py``) replaces this baseline on the main path.
+XLA's sorted ``segment_sum`` is no Pallas kernel, so its counterpart here
+is plain torch on the card as on the CPU: the COO product's fixed-order
+segment sum (``ops/spmm.py::segment_sum``) over each shard's row edge
+counts, made once with the shard's arrays by
+``ops/adjacency.py::segment_lengths``, which checks that the local rows
+are sorted. The halo exchange (``parallel/halo.py``) replaces this
+baseline on the main path.
 """
 
 from __future__ import annotations
@@ -18,12 +22,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from gcn_tpu_torch.ops.spmm import segment_sum
 
-def local_spmm(rows_local, cols, vals, x_full, rows_per_shard):
-    """out[r] = sum_e [rows_local[e] == r] vals[e] * x_full[cols[e]]."""
-    gathered = x_full[cols] * vals[:, None]
-    return x_full.new_zeros((rows_per_shard, x_full.shape[1])).index_add(
-        0, rows_local, gathered)
+
+def local_spmm(cols, vals, x_full, row_len):
+    """out[r] = sum_e [rows_local[e] == r] vals[e] * x_full[cols[e]], with
+    ``row_len`` the shard's row edge counts (``segment_lengths`` of its
+    sorted ``rows_local``): each row's edges summed in edge order (no
+    atomics)."""
+    return segment_sum(x_full[cols] * vals[:, None], row_len)
 
 
 class _AllGather(torch.autograd.Function):
@@ -54,9 +61,9 @@ class _AllGather(torch.autograd.Function):
         return None, total[pos * rows:(pos + 1) * rows]
 
 
-def dist_spmm_gathered(shard_arrays, x_bands, rows_per_shard, mesh):
+def dist_spmm_gathered(shard_arrays, x_bands, mesh):
     """SpMM of the owned slots: ``shard_arrays`` are the owned slots'
-    (rows_local, cols, vals) (a slot's are its band's), ``x_bands`` their
+    (cols, vals, row_len) (a slot's are its band's), ``x_bands`` their
     activation bands. With a model axis each model index gathers its own
     columns: the owned slots' bands go side by side, one all_gather."""
     js = len(mesh.model_slots)
@@ -67,8 +74,8 @@ def dist_spmm_gathered(shard_arrays, x_bands, rows_per_shard, mesh):
     x_full = _AllGather.apply(mesh, local) if mesh.data_parallel else local
     k = x_bands[0].shape[1]
     outs = []
-    for i, (rows_local, cols, vals) in enumerate(shard_arrays):
+    for i, (cols, vals, row_len) in enumerate(shard_arrays):
         j = i % js
         x_j = x_full if js == 1 else x_full[:, j * k:(j + 1) * k]
-        outs.append(local_spmm(rows_local, cols, vals, x_j, rows_per_shard))
+        outs.append(local_spmm(cols, vals, x_j, row_len))
     return outs

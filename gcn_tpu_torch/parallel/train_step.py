@@ -35,7 +35,8 @@ Knobs, as gcn_tpu's: ``exchange`` "halo" (the ragged plan), "halo_padded"
 (the padded all-to-all plan), "halo_hier" (the host x chip plan, whose
 factorization the mesh gives: ``create_mesh_hier``) or "all_gather" (the
 baseline); ``kernel`` "ell" (K1, needs a halo exchange) or "segsum"
-(``index_add``); ``overlap`` True / "blocks" (the pass-block partition),
+(the fixed-order segment sum, ``spmm_dist.local_spmm``); ``overlap``
+True / "blocks" (the pass-block partition),
 "split" (the row-split parts in part-degree order) or False (the
 monolithic layout: ``x @ w``, the exchange, then K1 on concat(halo,
 band)); ``exchange_dtype`` None, "bf16", "fp8" (the halo wire) or "auto"
@@ -65,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from gcn_tpu_torch.models.layers import dropout as dropout_fn
+from gcn_tpu_torch.ops.adjacency import segment_lengths
 from gcn_tpu_torch.parallel.halo import _round_up
 from gcn_tpu_torch.parallel.mesh import Mesh
 from gcn_tpu_torch.parallel.partition import ShardedGraph, pad_rows
@@ -325,11 +327,12 @@ def make_sharded_gcn_train_step(
     fused = band_spmm = None
     if exchange == "all_gather":
         send_idx = None
-        extra = [(index(sg.rows_local[s]), index(sg.cols[s]),
-                  torch.as_tensor(sg.vals[s], device=dev)) for s in owned]
+        extra = [(index(sg.cols[s]), torch.as_tensor(sg.vals[s], device=dev),
+                  index(segment_lengths(sg.rows_local[s], rps)))
+                 for s in owned]
 
         def band_spmm(adj, hs):
-            return spmm_dist.dist_spmm_gathered(adj[0], hs, rps, mesh)
+            return spmm_dist.dist_spmm_gathered(adj[0], hs, mesh)
     else:
         if exchange == "halo_hier":
             plan = halo.build_halo_plan_hier(sg, mesh.n_hosts, mesh.n_chips,
@@ -354,13 +357,14 @@ def make_sharded_gcn_train_step(
         ex_fn = halo.make_halo_exchange(plan, _WIRES[exchange_dtype])
         layout = dict(k_pad=k_pad, shards=owned, device=dev)
         if kernel == "segsum":
-            extra = [(index(sg.rows_local[s]), index(plan.col_remap[s]),
-                      torch.as_tensor(sg.vals[s], device=dev))
+            extra = [(index(plan.col_remap[s]),
+                      torch.as_tensor(sg.vals[s], device=dev),
+                      index(segment_lengths(sg.rows_local[s], rps)))
                      for s in owned]
 
             def band_spmm(adj, hs):
                 coo, idx = adj
-                return halo.dist_spmm_halo(coo, idx, hs, rps, mesh, ex_fn)
+                return halo.dist_spmm_halo(coo, idx, hs, mesh, ex_fn)
         elif overlap in (True, "blocks"):
             extra = halo.build_sharded_ell_blocks(sg, plan, **layout)
 

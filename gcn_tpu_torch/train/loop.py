@@ -91,7 +91,9 @@ def fit_gcn(
         raise ValueError(f"unknown fit mode {mode!r}")
     if mode != "no_val" and idx_val is None:
         raise ValueError(f"mode {mode!r} requires idx_val")
-    timers = timers or Timers()
+    # the device's timers: CUDA events on the card, so an eager step's time
+    # is the card's, not the host's time to enqueue it
+    timers = timers or Timers(labels.device)
     params = {name: {k: t.detach().clone().requires_grad_(True)
                      for k, t in layer.items()}
               for name, layer in params.items()}

@@ -1326,3 +1326,139 @@ def test_captured_hgnn_fit_over_split_windows_is_bit_equal(cuda):
     assert [h["loss_train"] for h in captured.history] == \
         [h["loss_train"] for h in eager.history]
     assert torch.equal(captured.output, eager.output)
+
+
+# ---- the COO product (GCN v1-v5 past 8,192 rows) -------------------------
+#
+# A gather, then each row's run of edges summed in edge order by the row
+# edge counts made with the layout (``ops/spmm.py::segment_sum``): no
+# atomics, so calls and captured fits are bit-equal on the card too.
+
+
+def _coo_graph(seed=6, n=9000):
+    """Symmetric, normalized, in its own row order, with a few rows of
+    over a thousand edges and n past 8,192, so that ``GCN`` resolves
+    ``adj_kind="auto"`` to ``CooAdj``."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n, 3).repeat(1200),
+                          rng.integers(0, n, 60_000)])
+    dst = rng.integers(0, n, src.shape[0])
+    return gcn_normalize(coo_to_csr(src, dst, None, (n, n)).symmetrize())
+
+
+def _coo_plain(adj, x, t=False):
+    """The product in float64 (``index_add_`` over the sorted rows)."""
+    rows, cols, vals, n_out = ((adj.t_rows, adj.t_cols, adj.t_vals,
+                                adj.n_cols) if t else
+                               (adj.rows, adj.cols, adj.vals, adj.n_rows))
+    prod = x.double()[cols] * vals.double()[:, None]
+    return prod.new_zeros((n_out, x.shape[1])).index_add_(0, rows, prod)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 40])
+def test_coo_spmm_deterministic_on_card(cuda, k):
+    """Two COO products bit-equal, forward and dX, each against its
+    float64 plain version at the f32 tolerance."""
+    from gcn_tpu_torch.ops.adjacency import coo_adjacency
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    adj = coo_adjacency(_coo_graph(), device=cuda)
+    assert int(adj.row_len.max()) > 1000
+    x = torch.randn(adj.n_cols, k, device=cuda)
+    ct = torch.randn(adj.n_rows, k, device=cuda)
+
+    def fwd_dx():
+        xg = x.clone().requires_grad_(True)
+        out = spmm(adj, xg)
+        return out.detach(), torch.autograd.grad(out, xg, ct)[0]
+
+    (o1, d1), (o2, d2) = fwd_dx(), fwd_dx()
+    assert torch.equal(o1, o2) and torch.equal(d1, d2)
+    _close(o1.double(), _coo_plain(adj, x))
+    _close(d1.double(), _coo_plain(adj, ct, t=True))
+
+
+@pytest.mark.cuda
+def test_coo_spmm_capturable_without_host_sync(cuda):
+    """The product and its dX neither wait for the host (sync debug mode
+    "error" raises on a synchronizing call) nor fail to capture, and a
+    replay equals the eager call bit for bit; on a rectangular graph,
+    whose transpose has counts of its own."""
+    from gcn_tpu_torch.ops.adjacency import coo_adjacency
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    adj = coo_adjacency(_rect_graph(), device=cuda)
+    assert adj.t_row_len is not adj.row_len
+    x = torch.randn(adj.n_cols, 32, device=cuda, requires_grad=True)
+    ct = torch.randn(adj.n_rows, 32, device=cuda)
+
+    def body():
+        out = spmm(adj, x)
+        return out.detach(), torch.autograd.grad(out, x, ct)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = body()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = body()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], eager[0])
+    assert torch.equal(captured[1], eager[1])
+
+
+@pytest.mark.cuda
+def test_captured_v4_fit_matches_eager_on_card(cuda):
+    """GCN v4 (the default variant) past 8,192 rows trains over
+    ``CooAdj``: the captured fit's losses, output and dropout stream equal
+    the eager fit's bit for bit, and K1 never launches."""
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops.adjacency import CooAdj
+
+    g = _coo_graph()
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((g.shape[0], 48)).astype(np.float32)
+    labels = rng.integers(0, 6, g.shape[0])
+    runs = {}
+    for jit_loop in (False, True):
+        before = es.spmm_ell_launches
+        m = GCN(48, 32, 6, seed=2, device=cuda)
+        m.fit(feats, g, labels, np.arange(3000), train_iters=15,
+              jit_loop=jit_loop)
+        assert es.spmm_ell_launches == before
+        runs[jit_loop] = m
+    eager, captured = runs[False], runs[True]
+    assert isinstance(eager.adj_norm, CooAdj)
+    assert [h["loss_train"] for h in captured.history] == \
+        [h["loss_train"] for h in eager.history]
+    assert torch.equal(captured.output, eager.output)
+    assert torch.equal(captured._rng_state, eager._rng_state)
+
+
+@pytest.mark.cuda
+def test_eager_fit_times_its_steps_on_the_card(cuda):
+    """An eager fit given no timers times each step with CUDA events that
+    it waits for, so the step's median is the card's time, not the host's
+    time to enqueue it."""
+    from gcn_tpu_torch.ops.adjacency import coo_adjacency
+
+    adj = coo_adjacency(_coo_graph(), device=cuda)
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((adj.n_rows, 24)),
+                     dtype=torch.float32, device=cuda)
+    labels = torch.tensor(rng.integers(0, 5, adj.n_rows), device=cuda)
+    idx = torch.arange(0, adj.n_rows // 2, device=cuda)
+    res = _functional_fit(adj, x, labels, idx, None, 14, False, cuda,
+                          mode="no_val")
+    step = res.timers("step").d
+    assert step.cuda and step.count == 4

@@ -39,6 +39,7 @@ from gcn_tpu.parallel.halo import build_sharded_ell_blocks as jx_blocks
 from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.models.gcn_core import gcn_forward
 from gcn_tpu_torch.ops import ell_spmm as es
+from gcn_tpu_torch.ops.adjacency import segment_lengths
 from gcn_tpu_torch.parallel import (band_degree_sort_order,
                                     build_halo_plan_ragged,
                                     build_sharded_ell,
@@ -244,9 +245,11 @@ def test_overlap_blocks_spmm_matches_segment_sum():
     a_int, a_halo = build_sharded_ell_blocks(sg, plan, r=32, device="cpu")
     idx = [torch.as_tensor(plan.send_idx[s], dtype=torch.int64)
            for s in range(NS)]
-    coo = [(torch.as_tensor(sg.rows_local[s], dtype=torch.int64),
-            torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
-            torch.as_tensor(sg.vals[s])) for s in range(NS)]
+    coo = [(torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
+            torch.as_tensor(sg.vals[s]),
+            torch.as_tensor(segment_lengths(sg.rows_local[s],
+                                            sg.rows_per_shard)))
+           for s in range(NS)]
     ex = halo.make_halo_exchange(plan)
     rng = np.random.default_rng(6)
     ct = torch.tensor(rng.standard_normal((sg.n_rows_padded, 24)),
@@ -254,8 +257,7 @@ def test_overlap_blocks_spmm_matches_segment_sum():
     outs, grads = [], []
     for run in (lambda xs: halo.dist_spmm_halo_ell_overlap_blocks(
             a_int, a_halo, idx, xs, mesh, ex),
-                lambda xs: halo.dist_spmm_halo(coo, idx, xs,
-                                               sg.rows_per_shard, mesh, ex)):
+                lambda xs: halo.dist_spmm_halo(coo, idx, xs, mesh, ex)):
         x = torch.tensor(rng.standard_normal((sg.n_rows_padded, 24)),
                          dtype=torch.float32) if not outs else x.detach()
         x.requires_grad_(True)

@@ -24,6 +24,7 @@ from gcn_tpu.parallel.halo import build_halo_plan_ragged as jx_ragged
 from gcn_tpu.parallel.halo import build_sharded_ell as jx_ell
 
 from gcn_tpu_torch.ops import ell_spmm as es
+from gcn_tpu_torch.ops.adjacency import segment_lengths
 from gcn_tpu_torch.parallel import (build_halo_plan, build_halo_plan_hier,
                                     build_halo_plan_ragged,
                                     build_sharded_ell, create_mesh,
@@ -306,9 +307,11 @@ def test_exchange_segment_sum_matches_dense(plan_name, hosts, chips, wire):
     wire_dtype = {None: None, "bf16": torch.bfloat16}[wire]
     ex = make_halo_exchange(plan, wire_dtype)
     idx = send_indices(plan, range(NS), "cpu")
-    coo = [(torch.as_tensor(sg.rows_local[s], dtype=torch.int64),
-            torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
-            torch.as_tensor(sg.vals[s])) for s in range(NS)]
+    coo = [(torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
+            torch.as_tensor(sg.vals[s]),
+            torch.as_tensor(segment_lengths(sg.rows_local[s],
+                                            sg.rows_per_shard)))
+           for s in range(NS)]
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.standard_normal((sg.n_rows_padded, 12)),
                      dtype=torch.float32, requires_grad=True)
@@ -316,7 +319,7 @@ def test_exchange_segment_sum_matches_dense(plan_name, hosts, chips, wire):
                       dtype=torch.float32)
     out = torch.cat(halo.dist_spmm_halo(coo, idx,
                                         list(x.split(sg.rows_per_shard)),
-                                        sg.rows_per_shard, mesh, ex))
+                                        mesh, ex))
     (out * ct).sum().backward()
     dense = np.zeros((sg.n_rows_padded,) * 2)
     dense[:g.shape[0], :g.shape[1]] = g.to_dense()
@@ -341,18 +344,18 @@ def test_layout_spmms_match_the_segment_sum(plan_name):
             else create_mesh(NS, "cpu"))
     ex = make_halo_exchange(plan)
     idx = send_indices(plan, range(NS), "cpu")
-    coo = [(torch.as_tensor(sg.rows_local[s], dtype=torch.int64),
-            torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
-            torch.as_tensor(sg.vals[s])) for s in range(NS)]
+    coo = [(torch.as_tensor(plan.col_remap[s], dtype=torch.int64),
+            torch.as_tensor(sg.vals[s]),
+            torch.as_tensor(segment_lengths(sg.rows_local[s],
+                                            sg.rows_per_shard)))
+           for s in range(NS)]
     mono = build_sharded_ell(sg, plan, r=32, device="cpu")
     e_int, i_take, i_back = build_sharded_ell(
         sg, plan, part="interior", part_order=True, r=32, device="cpu")
     e_bnd, b_take, b_back = build_sharded_ell(
         sg, plan, part="boundary", part_order=True, r=32, device="cpu")
     runs = {
-        "segsum": lambda xs: halo.dist_spmm_halo(coo, idx, xs,
-                                                 sg.rows_per_shard, mesh,
-                                                 ex),
+        "segsum": lambda xs: halo.dist_spmm_halo(coo, idx, xs, mesh, ex),
         "monolithic": lambda xs: halo.dist_spmm_halo_ell(mono, idx, xs,
                                                          mesh, ex),
         "split": lambda xs: halo.dist_spmm_halo_ell_overlap(
