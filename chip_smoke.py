@@ -128,8 +128,7 @@ Phases (each failure exits non-zero):
      (interior 32 and 40, halo 32 and 8); 5 steps (dropout 0) against the
      port's unsharded functional GCN on the same graph (losses at rtol
      1e-4, eval log-probs at atol 1e-4 + rtol 1e-5), the all_gather +
-     segsum baseline against the halo path (rtol 1e-4) and two runs of 2
-     of its steps bit-equal (losses and parameters), the bf16 and fp8
+     segsum baseline against the halo path (rtol 1e-4), the bf16 and fp8
      wires against f32 (rtol 0.05, atol 0.02) and fp8 with the features
      scaled by 1e4 (finite); 20 steps at dropout 0.5 with K1's launches
      equal to the count reckoned from the code (``dist_launches``), the
@@ -142,10 +141,17 @@ Phases (each failure exits non-zero):
      bf16-rounded x, f32 tolerance), and 5 steps with ``with_relu=False``
      against the unsharded functional GCN under the same flag (the
      tolerances above);
+     [dist determinism], for every sharded flavor as the phases below
+     build it (the default step, the all_gather baseline, the bf16 and
+     fp8 wires, each of [dist flavors] and each of [model axis]): two runs
+     of 2 steps at dropout 0 from the same start leave bit-equal losses
+     and parameters (``check_determinism``: the halo send gather's
+     gradient and every other sum of the step in a fixed order);
      [dist flavors], on the same 4 shards: ``overlap=False`` (the
      monolithic layout), ``overlap="split"`` (the row-split parts in
      part-degree order), ``exchange="halo_padded"`` and
-     ``exchange="halo_hier"`` on a 2 x 2 mesh with each fan-out: the plan
+     ``exchange="halo_hier"`` on a 2 x 2 mesh with each fan-out and on 1 x
+     4 and 4 x 1 meshes with the ragged fan-out: the plan
      and each new layout's slots; K1 against its float64 plain version on
      shard 0's new layouts at the widths the step launches (the padded and
      hierarchical plans change only the halo part: the interior part must
@@ -1031,6 +1037,29 @@ def ell_csr(a, t, device):
     return coo_to_csr(rows, cols, vals, (a.n_rows, a.n_cols)).to_torch(device)
 
 
+def check_determinism(label, step, shard_fn, start, fit):
+    """[dist determinism]: two runs of 2 steps of ``step`` at dropout 0
+    from the same start (``start(shard_fn)``) must leave the same losses
+    and parameters, bit for bit."""
+    import torch
+
+    from gcn_tpu_torch.utils.checkpoint import named_leaves
+
+    runs = [start(shard_fn) for _ in range(2)]
+    losses = [fit(step, state, 2)[0] for state in runs]
+    differ = sum(int((a != b).sum()) for (_, a), (_, b) in zip(
+        named_leaves(runs[0][0]), named_leaves(runs[1][0])))
+    same = losses[0] == losses[1] and differ == 0
+    print(f"[dist determinism] {label}: two runs of 2 steps bit-equal "
+          f"(losses and parameters) -> {'ok' if same else 'MISMATCH'} "
+          f"(losses {losses[0]} / {losses[1]}, {differ} parameter entries "
+          f"differ)", flush=True)
+    if not same:
+        fail(f"two runs of the sharded step ({label}) differ")
+    del runs
+    torch.cuda.empty_cache()
+
+
 def dist_launches(n_shards, widths, chunk, steps):
     """K1 launches of a sharded fit reckoned from the code: per shard and
     layer of output width f, one interior launch and one halo launch a
@@ -1194,18 +1223,9 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
     ag_l, _ = fit(agg[0], start(agg[2]), 5)
     print(f"  all_gather + segsum baseline losses {ag_l}", flush=True)
     check_close_losses("all_gather baseline vs halo", ag_l, halo_l, 1e-4)
-    # its segment sum adds each row in edge order: two runs of two steps
-    # from the same start leave the same losses and parameters, bit for bit
-    runs = [start(agg[2]) for _ in range(2)]
-    ag2 = [fit(agg[0], state, 2)[0] for state in runs]
-    same = ag2[0] == ag2[1] and all(
-        torch.equal(a, b) for (_, a), (_, b) in zip(
-            named_leaves(runs[0][0]), named_leaves(runs[1][0])))
-    print(f"  determinism all_gather baseline: two runs of 2 steps "
-          f"bit-equal (losses and parameters) -> "
-          f"{'ok' if same else 'MISMATCH'}", flush=True)
-    if not same:
-        fail("two all_gather baseline runs differ")
+    check_determinism("default (ragged plan, overlap on)", step, shard_fn,
+                      start, fit)
+    check_determinism("all_gather baseline", agg[0], agg[2], start, fit)
 
     print("[dist wires] 5 steps, dropout 0, against the f32 wire (rtol "
           "0.05, atol 0.02)", flush=True)
@@ -1219,6 +1239,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
               flush=True)
         if not ok:
             fail(f"the {wire} wire does not track f32: {wl} vs {halo_l}")
+        check_determinism(f"the {wire} wire", w_step, w_shard, start, fit)
         if wire == "fp8":
             big, _ = fit(w_step, start(w_shard, x * 1e4), 1)
             print(f"  fp8 with features x 1e4: loss {big[0]:.6g}",
@@ -1391,7 +1412,11 @@ DIST_FLAVORS = (
     ("halo_hier 2x2, ragged fan-out", dict(exchange="halo_hier"), (2, 2),
      False),
     ("halo_hier 2x2, all_gather fan-out",
-     dict(exchange="halo_hier", hier_fanout="all_gather"), (2, 2), False))
+     dict(exchange="halo_hier", hier_fanout="all_gather"), (2, 2), False),
+    ("halo_hier 1x4, ragged fan-out", dict(exchange="halo_hier"), (1, 4),
+     False),
+    ("halo_hier 4x1, ragged fan-out", dict(exchange="halo_hier"), (4, 1),
+     False))
 MONOLITHIC_USES = (("all", False, 32, "layer 1 forward"),
                    ("all", True, 32, "layer 1 dX"),
                    ("all", False, 40, "layer 2 forward"),
@@ -1521,6 +1546,7 @@ def dist_flavor_phases(dev, run):
                            1e-4)
         compare(f"{label} vs unsharded eval log-probs", lp,
                 run["unsharded_lp"], rtol=1e-5, atol=1e-4)
+        check_determinism(label, step, shard_fn, run["start"], run["fit"])
         path = f"sharded GCN {label}, {ns} shards, 5 steps, dropout 0"
         if timed:
             steps = 20
@@ -1675,6 +1701,8 @@ def model_axis_phase(dev, run):
                         torch.as_tensor(got[layer][name]),
                         torch.as_tensor(want_p), rtol=1e-5, atol=1e-4)
         del state
+        check_determinism(f"model axis {label}", step, shard_fn,
+                          run["start"], run["fit"])
         torch.cuda.empty_cache()
 
     steps = run["steps"]

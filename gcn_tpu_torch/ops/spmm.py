@@ -21,9 +21,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj
+from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj, segment_lengths
 
 
 def segment_sum(prod, row_len):
@@ -36,6 +37,64 @@ def segment_sum(prod, row_len):
     over the same sorted rows."""
     return torch.segment_reduce(prod, "sum", lengths=row_len, axis=0,
                                 unsafe=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGather:
+    """The indices of a row gather on the device: ``idx``, rows of a table
+    of ``row_len.numel()`` rows, and what its backward sums by: ``order``,
+    a stable sort of ``idx``, and ``row_len``, each table row's count in
+    ``idx`` (``segment_lengths`` of the sorted indices)."""
+
+    idx: torch.Tensor
+    order: torch.Tensor
+    row_len: torch.Tensor
+
+
+def row_gather(idx, n_rows, device) -> RowGather:
+    """``RowGather`` of the host indices ``idx`` into a table of ``n_rows``
+    rows, on ``device``: the sort is made once, on the host. Raises if an
+    index is out of range."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    order = np.argsort(idx, kind="stable")
+    row_len = segment_lengths(idx[order], n_rows)
+    return RowGather(*(torch.as_tensor(a, device=device)
+                       for a in (idx, order, row_len)))
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.rows = rows
+        return table.index_select(0, rows.idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rows = ctx.rows
+        return segment_sum(ct.index_select(0, rows.order), rows.row_len), \
+            None
+
+
+def gather_rows(table: torch.Tensor, rows) -> torch.Tensor:
+    """``table[idx]`` whose gradient adds each table row's cotangents in
+    the order of ``idx`` (``segment_sum`` over the stable sort): no atomics
+    and no wait for the host, so it is the same from run to run and can be
+    captured into a CUDA graph, and on the CPU it is bit-equal to
+    ``index_add_`` of the cotangents. (The backward of ``index_select``,
+    ``index_add_``, adds with atomics on the card; that of ``table[idx]``,
+    ``index_put_`` with accumulate, across threads on the CPU past 32,768
+    elements.) ``rows``: a ``RowGather``, or on the CPU a plain index
+    tensor, then sorted at each call; a plain index off the CPU raises (its
+    sort would wait for the host at each call: make a ``RowGather`` once
+    with ``row_gather``)."""
+    if isinstance(rows, torch.Tensor):
+        if rows.device.type != "cpu":
+            raise ValueError(
+                f"gather_rows: a plain index tensor on {rows.device} would "
+                f"be sorted on the host at each call; pass a RowGather "
+                f"made once by row_gather")
+        rows = row_gather(rows.numpy(), table.shape[0], rows.device)
+    return _GatherRows.apply(table, rows)
 
 
 def _segment_spmm(cols, vals, x, row_len):

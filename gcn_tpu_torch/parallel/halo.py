@@ -48,8 +48,15 @@ pieces to one row (the all_gather fan-out) they add, as JAX transposes
 
 The aggregation runs on K1 (``ops/ell_spmm.py``) per shard over one of
 three layouts, each an ``EllAdj`` per shard with transpose arrays, so that
-autograd through ``spmm_ell`` gives d(table) and the concat, the exchange
-and the send-gather differentiate by themselves:
+autograd through ``spmm_ell`` gives d(table) and the concat and the
+exchange differentiate by themselves. The send gather
+(``gather_send_rows``) sums each band row's cotangents in send order, as
+XLA's scatter-add transposes gcn_tpu's ``jnp.take``; ``index_select``'s
+own backward adds them with atomics on the card, in no fixed order. A
+segment of a plan (one destination) lists distinct rows, then pads with
+row 0, which no stored edge reads, so its padding's cotangents are zero;
+the backward adds one segment at a time, in segment order (``send_indices``
+cuts the segments at the plan's payload heights):
 
   * the pass-block partition (``build_sharded_ell_blocks``, the train
     step's default): an interior part that gathers straight from the band
@@ -73,7 +80,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gcn_tpu_torch.parallel.partition import ShardedGraph
+from gcn_tpu_torch.parallel.partition import ShardedGraph, rows_per_shard_for
 from gcn_tpu_torch.parallel.spmm_dist import local_spmm
 
 
@@ -432,19 +439,87 @@ def build_halo_plan_hier(sg: ShardedGraph, n_hosts: int, n_chips: int,
         n_chips=nc, n_rows=sg.n_rows)
 
 
-def send_indices(plan, shards, device):
-    """Each shard of ``shards``' send-row indices on ``device``, as the
-    plan's exchange takes them: a tensor (ragged: its segments; padded: its
-    ns x h_max slice, flattened), or (intra, inter, fan) for the
-    hierarchical plan."""
-    def index(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64).reshape(-1),
-                               device=device)
+@dataclasses.dataclass(frozen=True)
+class SendRows:
+    """One shard's send gather on the device: ``idx``, the rows it ships,
+    in the plan's segments, each ``segments`` entry a (start, stop) of
+    ``idx``."""
 
+    idx: torch.Tensor
+    segments: tuple
+
+
+def send_rows(idx, heights, n_rows, device) -> SendRows:
+    """``SendRows`` of one shard's host indices ``idx``, rows of a table of
+    ``n_rows`` rows, in segments of ``heights`` rows each (the plan's
+    payload heights, 0 = no segment), on ``device``. Raises unless the
+    segments cover ``idx`` and every index is in range."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    ends = np.cumsum([h for h in heights if h], dtype=np.int64)
+    if (ends[-1] if ends.size else 0) != idx.size or (
+            idx.size and (idx.min() < 0 or idx.max() >= n_rows)):
+        raise ValueError(f"send rows: segments {heights} over {idx.size} "
+                         f"indices into {n_rows} rows")
+    starts = np.concatenate([[0], ends[:-1]])
+    return SendRows(torch.as_tensor(idx, device=device),
+                    tuple(zip(starts.tolist(), ends.tolist())))
+
+
+def send_indices(plan, shards, device):
+    """Each shard of ``shards``' send rows on ``device`` (``SendRows``), as
+    the plan's exchange takes them: one gather from the band (ragged: its
+    offsets' segments; padded: its ns slices of h_max, flattened), or
+    (intra, inter, fan) for the hierarchical plan: two gathers from the
+    band and the ragged fan-out's from the received unions (empty for the
+    all_gather fan-out)."""
+    rps = rows_per_shard_for(plan.n_rows, plan.n_shards)
     if isinstance(plan, HierHaloPlan):
-        return [(index(plan.send_intra[s]), index(plan.send_inter[s]),
-                 index(plan.send_fan[s])) for s in shards]
-    return [index(plan.send_idx[s]) for s in shards]
+        fan = plan.fan_sizes or ()
+        return [(send_rows(plan.send_intra[s], plan.intra_sizes, rps, device),
+                 send_rows(plan.send_inter[s], plan.inter_sizes, rps, device),
+                 send_rows(plan.send_fan[s][:sum(fan)], fan,
+                           sum(plan.inter_sizes), device))
+                for s in shards]
+    heights = (plan.sizes if isinstance(plan, RaggedHaloPlan)
+               else (plan.h_max,) * plan.n_shards)
+    return [send_rows(plan.send_idx[s], heights, rps, device)
+            for s in shards]
+
+
+class _SendGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.rows, ctx.n_rows = rows, table.shape[0]
+        return table.index_select(0, rows.idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rows = ctx.rows
+        grad = ct.new_zeros((ctx.n_rows, ct.shape[1]))
+        for a, b in rows.segments:
+            grad.index_add_(0, rows.idx[a:b], ct[a:b])
+        return grad, None
+
+
+def gather_send_rows(table: torch.Tensor, rows) -> torch.Tensor:
+    """``table.index_select(0, rows.idx)``, whose gradient adds one segment
+    at a time, in segment order (``index_select``'s own backward adds with
+    atomics on the card, in no fixed order). A segment repeats no row but
+    its padding's row 0, whose cotangents the exchange gives as zero, so
+    each table row's cotangents sum in send order, the same from run to
+    run, with no wait for the host (capturable into a CUDA graph); on the
+    CPU the gradient is bit-equal to ``index_add_`` of any cotangents.
+    ``rows`` may also be a plain index tensor on the CPU, one segment
+    (the CPU's ``index_add_`` adds in index order); off the CPU it
+    raises."""
+    if isinstance(rows, torch.Tensor):
+        if rows.device.type != "cpu":
+            raise ValueError(
+                f"gather_send_rows: a plain index tensor on {rows.device} "
+                f"has no segments to add in order; pass send_indices' "
+                f"SendRows")
+        rows = SendRows(rows, ((0, rows.numel()),))
+    return _SendGather.apply(table, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -989,7 +1064,7 @@ def _prep_send(x_band, send_idx, pre, wire_dtype):
     (torch's cast saturates), so the clip makes both packages send the
     same bytes. bf16 shares f32's exponent range, so it is not clipped.
     """
-    rows = x_band.index_select(0, send_idx)
+    rows = gather_send_rows(x_band, send_idx)
     if pre is not None:
         rows = pre(rows)
     out_dtype = rows.dtype
@@ -1034,8 +1109,8 @@ def _exchange_halo(route, zero_head, send_idx, x_bands, mesh, pre=None,
     return _PendingHalo(finish)
 
 
-def _exchange_halo_hier(routes, fan_rows, send_idx, x_bands, mesh, pre=None,
-                        wire_dtype=None) -> _PendingHalo:
+def _exchange_halo_hier(routes, ragged_fan, send_idx, x_bands, mesh,
+                        pre=None, wire_dtype=None) -> _PendingHalo:
     """Start the two-level exchange: the chip-offset shifts of the
     same-host rows and the host-offset shifts of the unions; the wait then
     fans the received unions out over the chips (the ragged subsets,
@@ -1053,7 +1128,7 @@ def _exchange_halo_hier(routes, fan_rows, send_idx, x_bands, mesh, pre=None,
     def finish():
         recv_i = intra.wait()
         recv_e = inter.wait()
-        if fan_rows is None:
+        if not ragged_fan:
             fan = _Pending(mesh, fan_route, recv_e).wait()
             parts = zip(recv_i, fan)
         else:
@@ -1062,7 +1137,7 @@ def _exchange_halo_hier(routes, fan_rows, send_idx, x_bands, mesh, pre=None,
             # there (float8 has no add)
             unions = [u.to(out_dtype) for u in recv_e]
             fan = _Pending(mesh, fan_route, [
-                u.index_select(0, idx[2][:fan_rows]).to(r.dtype)
+                gather_send_rows(u, idx[2]).to(r.dtype)
                 for u, idx, r in zip(unions, send_idx, recv_e)]).wait()
             parts = zip(recv_i, unions, fan)
         return [torch.cat([p[0].new_zeros((8, p[0].shape[1]),
@@ -1092,7 +1167,6 @@ def make_halo_exchange(plan, wire_dtype=None):
             lambda a, i: ((a // nc + i + 1) % nh) * nc + a % nc, ns)
         tag = len(intra) + len(inter)
         if plan.fan_sizes is None:
-            fan_rows = None
             # every union to every chip of its host, chip-major
             fan = _Route(tuple((a, chip_shift(a, t), 0, a % nc * sum_e,
                                 sum_e) for t in range(nc) for a in range(ns)
@@ -1105,8 +1179,8 @@ def make_halo_exchange(plan, wire_dtype=None):
                 ns), fan_rows, fan_rows, tag0=tag)
         routes = (_Route(intra, sum_i, sum_i),
                   _Route(inter, sum_e, sum_e, tag0=len(intra)), fan)
-        return partial(_exchange_halo_hier, routes, fan_rows,
-                       wire_dtype=wire_dtype)
+        return partial(_exchange_halo_hier, routes,
+                       plan.fan_sizes is not None, wire_dtype=wire_dtype)
     ns = plan.n_shards
     if isinstance(plan, RaggedHaloPlan):
         rows = sum(plan.sizes)

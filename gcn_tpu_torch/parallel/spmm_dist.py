@@ -13,8 +13,10 @@ is plain torch on the card as on the CPU: the COO product's fixed-order
 segment sum (``ops/spmm.py::segment_sum``) over each shard's row edge
 counts, made once with the shard's arrays by
 ``ops/adjacency.py::segment_lengths``, which checks that the local rows
-are sorted. The halo exchange (``parallel/halo.py``) replaces this
-baseline on the main path.
+are sorted; the gather ``x_full[cols]`` differentiates by
+``ops/spmm.py::gather_rows``, each x_full row's cotangents summed in edge
+order over a sort of the columns made with the arrays. The halo exchange
+(``parallel/halo.py``) replaces this baseline on the main path.
 """
 
 from __future__ import annotations
@@ -22,15 +24,17 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from gcn_tpu_torch.ops.spmm import segment_sum
+from gcn_tpu_torch.ops.spmm import gather_rows, segment_sum
 
 
 def local_spmm(cols, vals, x_full, row_len):
     """out[r] = sum_e [rows_local[e] == r] vals[e] * x_full[cols[e]], with
     ``row_len`` the shard's row edge counts (``segment_lengths`` of its
-    sorted ``rows_local``): each row's edges summed in edge order (no
+    sorted ``rows_local``): each row's edges summed in edge order, and the
+    gradient of x_full each column's edges in edge order (``cols`` a
+    ``RowGather`` into x_full's rows, or a plain index tensor; no
     atomics)."""
-    return segment_sum(x_full[cols] * vals[:, None], row_len)
+    return segment_sum(gather_rows(x_full, cols) * vals[:, None], row_len)
 
 
 class _AllGather(torch.autograd.Function):

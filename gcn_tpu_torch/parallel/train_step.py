@@ -67,6 +67,7 @@ import torch.distributed as dist
 
 from gcn_tpu_torch.models.layers import dropout as dropout_fn
 from gcn_tpu_torch.ops.adjacency import segment_lengths
+from gcn_tpu_torch.ops.spmm import row_gather
 from gcn_tpu_torch.parallel.halo import _round_up
 from gcn_tpu_torch.parallel.mesh import Mesh
 from gcn_tpu_torch.parallel.partition import ShardedGraph, pad_rows
@@ -327,7 +328,8 @@ def make_sharded_gcn_train_step(
     fused = band_spmm = None
     if exchange == "all_gather":
         send_idx = None
-        extra = [(index(sg.cols[s]), torch.as_tensor(sg.vals[s], device=dev),
+        extra = [(row_gather(sg.cols[s], sg.n_rows_padded, dev),
+                  torch.as_tensor(sg.vals[s], device=dev),
                   index(segment_lengths(sg.rows_local[s], rps)))
                  for s in owned]
 
@@ -357,7 +359,8 @@ def make_sharded_gcn_train_step(
         ex_fn = halo.make_halo_exchange(plan, _WIRES[exchange_dtype])
         layout = dict(k_pad=k_pad, shards=owned, device=dev)
         if kernel == "segsum":
-            extra = [(index(plan.col_remap[s]),
+            extra = [(row_gather(plan.col_remap[s], plan.halo_rows + rps,
+                                 dev),
                       torch.as_tensor(sg.vals[s], device=dev),
                       index(segment_lengths(sg.rows_local[s], rps)))
                      for s in owned]

@@ -14,6 +14,7 @@ in another order.
 """
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -816,6 +817,117 @@ def test_sharded_flavors_on_card_match_cpu(cuda, flavor, launches):
     assert k1_card == launches
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
     torch.testing.assert_close(lp_card, lp_cpu, rtol=1e-5, atol=1e-4)
+
+
+# ---- the sharded step's gathers -------------------------------------------
+#
+# A row that several shards need is sent several times, so the send
+# gather's gradient adds several cotangents into one band row. It adds one
+# plan segment at a time, whose rows repeat only as the padding's row 0
+# (``parallel/halo.py::gather_send_rows``), not with ``index_select``'s
+# atomic backward; the
+# edge gather of the all_gather baseline and the segment sum sums each
+# row's run over a sort made with the arrays (``ops/spmm.py::gather_rows``).
+
+
+@functools.lru_cache(maxsize=1)
+def _smoke_plan():
+    """(ragged plan, band rows, each shard's padding positions in its send
+    rows) at the smoke's scale: synth-arxiv (seed 15, ``gcn_normalize``)
+    in-band degree sorted at 4 bands; made once."""
+    from gcn_tpu_torch.data import get_dataset
+    from gcn_tpu_torch.parallel import (band_degree_sort_order,
+                                        build_halo_plan_ragged,
+                                        rows_per_shard_for,
+                                        shard_graph_by_rows)
+    from gcn_tpu_torch.parallel.halo import _pair_boundaries
+
+    g = gcn_normalize(get_dataset("synth-arxiv", seed=15).adj)
+    g = g.permute(band_degree_sort_order(g, rows_per_shard_for(g.shape[0],
+                                                               4)))
+    sg = shard_graph_by_rows(g, 4)
+    plan = build_halo_plan_ragged(sg)
+    needed, _ = _pair_boundaries(sg)
+    pads = []
+    for s in range(4):
+        pad, o = [], 0
+        for t, h in enumerate(plan.sizes, 1):
+            pad.extend(range(o + len(needed[(s + t) % 4, s]), o + h))
+            o += h
+        pads.append(np.asarray(pad, dtype=np.int64))
+    return plan, sg.rows_per_shard, pads
+
+
+@pytest.mark.cuda
+def test_send_gather_backward_deterministic_on_card(cuda):
+    """On every shard of the smoke-sized ragged plan (tens of thousands of
+    rows sent more than once), two backward passes of the send gather are
+    bit-equal, and equal ``index_add_`` in float64 at the f32 tolerance
+    (the cotangents zero at the padding, as the exchange gives them)."""
+    from gcn_tpu_torch.parallel import send_indices
+    from gcn_tpu_torch.parallel.halo import gather_send_rows
+
+    plan, rps, pads = _smoke_plan()
+    for rows, pad in zip(send_indices(plan, range(4), cuda), pads):
+        assert int((torch.bincount(rows.idx) > 1).sum()) > 10_000
+        x = torch.randn(rps, 32, device=cuda)
+        ct = torch.randn(rows.idx.numel(), 32, device=cuda).index_fill_(
+            0, torch.as_tensor(pad, device=cuda), 0)
+        grads = []
+        for _ in range(2):
+            xg = x.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(gather_send_rows(xg, rows), xg,
+                                             ct)[0])
+        assert torch.equal(grads[0], grads[1])
+        _close(grads[0].double(), torch.zeros(
+            rps, 32, dtype=torch.float64, device=cuda).index_add_(
+                0, rows.idx, ct.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", ["send", "rows"])
+def test_gathers_capturable_on_card(cuda, gather):
+    """The send gather and ``gather_rows``, forward and backward, neither
+    wait for the host (sync debug mode "error" raises on a synchronizing
+    call) nor fail to capture into a CUDA graph, and a replay equals the
+    eager call bit for bit."""
+    from gcn_tpu_torch.ops.spmm import gather_rows, row_gather
+    from gcn_tpu_torch.parallel import send_indices
+    from gcn_tpu_torch.parallel.halo import gather_send_rows
+
+    plan, rps, pads = _smoke_plan()
+    rows = send_indices(plan, [0], cuda)[0]
+    fn = gather_send_rows
+    x = torch.randn(rps, 32, device=cuda, requires_grad=True)
+    ct = torch.randn(rows.idx.numel(), 32, device=cuda)
+    if gather == "rows":
+        rows, fn = row_gather(rows.idx.cpu().numpy(), rps, cuda), gather_rows
+    else:
+        # zero at the padding, as the exchange gives them
+        ct.index_fill_(0, torch.as_tensor(pads[0], device=cuda), 0)
+
+    def body():
+        out = fn(x, rows)
+        return out.detach(), torch.autograd.grad(out, x, ct)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = body()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = body()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], eager[0])
+    assert torch.equal(captured[1], eager[1])
 
 
 # ---- the captured fit (jit_loop=True): replays of one CUDA graph --------
