@@ -612,19 +612,17 @@ FREQ_HOT_ROWS = 32768   # forced below synth-arxiv's n, so a cold part exists
 
 
 def reset_launches():
-    from gcn_tpu_torch.ops import ell_spmm as es
-    from gcn_tpu_torch.ops import panel_spmm as ps
+    from gcn_tpu_torch.utils.timers import counters
 
-    es.spmm_ell_launches = ps.spmm_panel_launches = 0
-    es.spmm_ell_launches_by_k.clear()
+    counters.clear()
 
 
 def read_launches():
     """(K1 launches, K1 launches by width) since ``reset_launches``."""
-    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops.ell_spmm import calls_by_k
+    from gcn_tpu_torch.utils.timers import counters
 
-    return es.spmm_ell_launches, dict(sorted(
-        es.spmm_ell_launches_by_k.items()))
+    return counters["spmm_ell"], calls_by_k(counters)
 
 
 def hgnn_launches(adj, in_ch, epochs):
@@ -1097,7 +1095,7 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
     from gcn_tpu_torch.utils.checkpoint import (load_training_state,
                                                 named_leaves,
                                                 save_training_state)
-    from gcn_tpu_torch.utils.timers import Timers
+    from gcn_tpu_torch.utils.timers import Timers, counters
 
     ns, n = DIST_SHARDS, g_rabbit.shape[0]
     nhid, ncls = p0["gc1"]["w"].shape[1], data.num_classes
@@ -1258,10 +1256,10 @@ def dist_phases(dev, data, g_rabbit, perm_rabbit, p0, plain_ms):
         if not a.table_bf16:
             fail(f"the {name} part lost table_bf16")
         xk = torch.randn(a.n_cols, 32, device=dev, generator=gen)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.spmm_ell(a, xk)
         torch.cuda.synchronize()
-        if es.spmm_ell_launches != before + 1:
+        if counters["spmm_ell"] != before + 1:
             fail(f"table_bf16 {name} part: K1 did not launch once")
         compare(f"table_bf16 {name} part fwd k=32", got,
                 es._ell_spmm_plain(xk.to(torch.bfloat16).double(), a.cols,
@@ -2244,14 +2242,14 @@ def captured_gcn_phase(dev, data, eager, panel):
     generator seed. The wrappers' host counters count the warm-up steps
     and the captured call; the kernels the replays launch are counted
     from the profiler's kernel records, in a second captured run. Then the
+    from gcn_tpu_torch.utils.timers import counters
     captured step's device-busy share under torch.profiler. Returns
     {path: (profiler records, host calls)}."""
     import torch
 
     from gcn_tpu_torch.models import GCN
-    from gcn_tpu_torch.ops import ell_spmm as es
-    from gcn_tpu_torch.ops import panel_spmm as ps
     from gcn_tpu_torch.train.capture import WARMUP
+    from gcn_tpu_torch.utils.timers import counters
 
     steps = len(eager.history)
     nfeat, nhid, ncls = data.num_features, eager.nhid, eager.nclass
@@ -2271,7 +2269,7 @@ def captured_gcn_phase(dev, data, eager, panel):
     reset_launches()
     cap = main_path()
     torch.cuda.synchronize()
-    host = es.spmm_ell_launches
+    host = counters["spmm_ell"]
     acc = cap.test(data.idx_test, verbose=False)
     acc_eager = eager.test(data.idx_test, verbose=False)
     print(f"  fit {time.time() - t0:.2f}s (preprocessing included); "
@@ -2317,7 +2315,7 @@ def captured_gcn_phase(dev, data, eager, panel):
     reset_launches()
     pres = panel_path()
     torch.cuda.synchronize()
-    phost, k1_host = ps.spmm_panel_launches, es.spmm_ell_launches
+    phost, k1_host = counters["spmm_panel"], counters["spmm_ell"]
     captured_report("panel path step", (losses_of(pres), pres.log_probs),
                     (losses_of(panel_eager), panel_eager.log_probs),
                     (pres.timers("step").d.median_ms,
@@ -2371,9 +2369,9 @@ def ladder_phase(dev, data, p0):
     from gcn_tpu_torch.convert import params_from_numpy
     from gcn_tpu_torch.graph.normalize import gcn_normalize
     from gcn_tpu_torch.models import GCN
-    from gcn_tpu_torch.ops import panel_spmm as ps
     from gcn_tpu_torch.ops.adjacency import CooAdj, device_adjacency
     from gcn_tpu_torch.ops.spmm import spmm
+    from gcn_tpu_torch.utils.timers import counters
 
     t0 = time.time()
     nfeat, nhid, ncls = data.num_features, 32, data.num_classes
@@ -2440,7 +2438,7 @@ def ladder_phase(dev, data, p0):
             m.fit(data.features, data.adj, data.labels, data.idx_train,
                   train_iters=LADDER_STEPS, jit_loop=jit_loop)
             torch.cuda.synchronize()
-            if read_launches()[0] or ps.spmm_panel_launches:
+            if read_launches()[0] or counters["spmm_panel"]:
                 fail(f"{v} launched K1 or K2 over its CooAdj")
             if not isinstance(m.adj_norm, CooAdj):
                 fail(f"{v} trained over {type(m.adj_norm).__name__}")
@@ -2761,6 +2759,7 @@ def main():
     from gcn_tpu_torch.tile import panel_adjacency
     from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
     from gcn_tpu_torch.tile.tiler import default_split_slots
+    from gcn_tpu_torch.utils.timers import counters
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3081,11 +3080,11 @@ def main():
         m = GCN(nfeat, nhid, ncls, dropout=0.0, variant="v6", seed=SEED,
                 adj_options=opts, device=device)
         m.params = params_from_numpy(p0, device)
-        es.spmm_ell_launches = 0
+        counters["spmm_ell"] = 0
         # the eager flavor: the host counter counts every K1 launch
         m.fit(data.features, data.adj, data.labels, data.idx_train,
               train_iters=5, initialize=False, jit_loop=False)
-        bf16_launches[name] = es.spmm_ell_launches
+        bf16_launches[name] = counters["spmm_ell"]
         hist[name] = [h["loss_train"] for h in m.history]
         print(f"  {name}: losses {hist[name]} ({bf16_launches[name]} K1 "
               f"launches, {time.time() - t0:.1f}s)", flush=True)
@@ -3113,11 +3112,11 @@ def main():
           f"flavor is the [captured fit] phase's)", flush=True)
     model = GCN(nfeat, nhid, ncls, variant="v6", seed=SEED, device="cuda")
     t0 = time.time()
-    es.spmm_ell_launches = 0
+    counters["spmm_ell"] = 0
     model.fit(data.features, data.adj, data.labels, data.idx_train,
               train_iters=steps, jit_loop=False)
     torch.cuda.synchronize()
-    launches = es.spmm_ell_launches
+    launches = counters["spmm_ell"]
     fit_s = time.time() - t0
     losses = [h["loss_train"] for h in model.history]
     acc = model.test(data.idx_test)
@@ -3150,7 +3149,7 @@ def main():
     inv[perm] = np.arange(n)
     labels = torch.as_tensor(data.labels[perm], device=dev)
     idx_train = torch.as_tensor(inv[np.asarray(data.idx_train)], device=dev)
-    es.spmm_ell_launches = ps.spmm_panel_launches = 0
+    counters["spmm_ell"] = counters["spmm_panel"] = 0
     pfeats = hoist_spmm(padj, feats)
     res = panel_fit(params_from_numpy(p0, dev), pfeats, padj, labels,
                     idx_train, 5, 0.0, dev, jit_loop=False)
@@ -3162,14 +3161,14 @@ def main():
           f"(rtol 1e-4) ok", flush=True)
     init = GCN(nfeat, nhid, ncls, seed=SEED, device=dev).init_params()
     t0 = time.time()
-    es.spmm_ell_launches = ps.spmm_panel_launches = 0
+    counters["spmm_ell"] = counters["spmm_panel"] = 0
     pfeats = hoist_spmm(padj, feats)
     # the eager flavor: the host counter counts every K2 launch
     res = panel_fit(init, pfeats, padj, labels, idx_train, steps, 0.5, dev,
                     jit_loop=False)
     panel_eager = res
     torch.cuda.synchronize()
-    launches2, k1_in_panel = ps.spmm_panel_launches, es.spmm_ell_launches
+    launches2, k1_in_panel = counters["spmm_panel"], counters["spmm_ell"]
     plosses = [h["loss_train"] for h in res.history]
     pout = res.log_probs
     idx_test = torch.as_tensor(inv[np.asarray(data.idx_test)], device=dev)

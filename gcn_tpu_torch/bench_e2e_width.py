@@ -24,7 +24,7 @@ and 16) on the graph of seed 0, and for each:
     under torch.profiler, its device ms and its K1 ms a step;
   * ``k_pad`` / ``p`` of the ELL layout (v6: 64 at hidden 64, 128 at
     hidden 128), or the adjacency kind (v4: torch's COO product), and the
-    K1 launches of a 5-step eager fit (``spmm_ell_launches_by_k``).
+    K1 launches of a 5-step eager fit (``utils.timers.counters``).
 
 With ``--device cpu`` the fits run on the CPU and every time is null.
 Prints one JSON line a row, a summary table, and writes the artifact.
@@ -99,11 +99,12 @@ def model_step(model, idx_train):
 def k1_launches(data, variant, hidden, device):
     """K1's launches by width in a 5-step eager fit (the host counter sees
     every launch of the eager flavor)."""
-    from gcn_tpu_torch.ops import ell_spmm as es
+    from gcn_tpu_torch.ops.ell_spmm import calls_by_k
+    from gcn_tpu_torch.utils.timers import counters
 
-    es.spmm_ell_launches_by_k.clear()
+    counters.clear()
     fit(data, variant, hidden, 5, SEEDS[0], device, jit_loop=False)
-    return dict(sorted(es.spmm_ell_launches_by_k.items()))
+    return calls_by_k(counters)
 
 
 def measure(data, variant, hidden, iters, device):

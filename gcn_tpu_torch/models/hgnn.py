@@ -37,7 +37,7 @@ from gcn_tpu_torch.train.metrics import accuracy
 from gcn_tpu_torch.train.optim import adam_l2
 from gcn_tpu_torch.utils.checkpoint import named_leaves, snapshot
 from gcn_tpu_torch.utils.device import resolve_device
-from gcn_tpu_torch.utils.timers import Marks, Timers
+from gcn_tpu_torch.utils.timers import Marks, Timers, span
 
 
 def init_hgnn_params(generator: torch.Generator, in_ch: int, n_hid: int,
@@ -152,147 +152,165 @@ class HGNN:
         ``save_state`` checkpoint of either package. ``jit_loop`` (the
         default, as in gcn_tpu) runs the epochs as replays of one captured
         CUDA graph (``train/capture.py``; plain calls of the same epoch on
-        the CPU); ``jit_loop=False`` runs them eagerly."""
-        adj = self.g_adj = self._adjacency(G)
-        dev = self.device
-        x = torch.as_tensor(np.asarray(features), dtype=torch.float32,
-                            device=dev)
-        labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64,
-                                 device=dev)
-        idx_train = torch.as_tensor(np.asarray(idx_train),
-                                    dtype=torch.int64, device=dev)
-        if idx_val is not None:
-            idx_val = torch.as_tensor(np.asarray(idx_val),
-                                      dtype=torch.int64, device=dev)
-
-        if self.params is None:
-            self.params = self.init_params()
-        gen = torch.Generator(device=dev).manual_seed(self.seed + 1)
-        self._epochs_done = 0
-        adam_state, schedule_at = None, 0
-        if resume_from is not None:
-            from gcn_tpu_torch.utils.checkpoint import load_training_state
-
-            state = load_training_state(resume_from, self.params,
-                                        adam_index=self._ADAM_INDEX,
-                                        schedule=True)
-            self.params, adam_state = state.params, state.adam_state
-            self._epochs_done = state.iteration
-            schedule_at = state.schedule_count
-            state.restore_generator(gen)
-            if idx_val is not None:
-                import warnings
-
-                warnings.warn(
-                    "resume_from restores params/optimizer/rng but NOT "
-                    "the best-val snapshot: best tracking restarts here")
-
-        params = {name: {k: t.detach().clone().requires_grad_(True)
-                         for k, t in layer.items()}
-                  for name, layer in self.params.items()}
-        leaves = [t for _, t in named_leaves(params)]
-        # MultiStepLR's rate, set before each epoch: on a CUDA device a
-        # tensor that the captured epoch reads, filled at a milestone
-        rate = self.lr_at(schedule_at)
-        lr = (torch.tensor(rate, device=dev) if dev.type == "cuda"
-              else rate)
-        opt = adam_l2(leaves, lr, self.weight_decay)
-        if adam_state:
-            full = opt.state_dict()
-            full["state"] = adam_state
-            opt.load_state_dict(full)
-
-        def set_rate(epoch):
-            nonlocal rate
-            new = self.lr_at(schedule_at + epoch)
-            if new == rate:
-                return
-            rate = new
-            for group in opt.param_groups:
-                if isinstance(group["lr"], torch.Tensor):
-                    group["lr"].fill_(new)
-                else:
-                    group["lr"] = new
-
-        # the training-invariant layer-1 aggregation: GX in column chunks,
-        # and the row sums for the bias term (hgnn_forward's expansion)
-        with self.timers("hoist_gx").d as t:
-            gx = t.fence(hoist_spmm(adj, x))
-        with torch.no_grad():
-            g_rowsum = spmm(adj, x.new_ones((x.shape[0], 1)))[:, 0]
-
-        def evaluate(p):
-            with torch.no_grad():
-                return hgnn_forward(p, None, adj, train=False, gx=gx,
-                                    g_rowsum=g_rowsum)
-
-        best_params = snapshot(params)
-        best = [t for _, t in named_leaves(best_params)]
-        best_acc = torch.tensor(-float("inf"), device=dev)
-        epoch = torch.zeros(1, dtype=torch.int64, device=dev)
-        losses = torch.full((num_epochs,), float("nan"), device=dev)
-        accs = torch.full((num_epochs,), float("nan"), device=dev)
-
-        def step():
-            """One epoch: the training step, its loss and the best-val
-            select, recorded at index ``epoch`` of the device buffers."""
-            opt.zero_grad(set_to_none=True)
-            logits = hgnn_forward(params, None, adj, dropout=self.dropout,
-                                  train=True, generator=gen, gx=gx,
-                                  g_rowsum=g_rowsum)
-            loss = cross_entropy(logits, labels, idx_train)
-            loss.backward()
-            opt.step()
-            with torch.no_grad():
-                losses.index_copy_(0, epoch, loss.detach().reshape(1))
+        the CPU); ``jit_loop=False`` runs them eagerly. The fit is a ``fit``
+        span (``utils/timers.py``): ``fit.prepare`` (G, the inputs' upload,
+        the G X hoist, the optimizer, the buffers), ``fit.loop`` and
+        ``fit.finish`` (the host reads and the final evaluation)."""
+        with span("fit"):
+            with span("fit.prepare"):
+                adj = self.g_adj = self._adjacency(G)
+                dev = self.device
+                x = torch.as_tensor(np.asarray(features), dtype=torch.float32,
+                                    device=dev)
+                labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64,
+                                         device=dev)
+                idx_train = torch.as_tensor(np.asarray(idx_train),
+                                            dtype=torch.int64, device=dev)
                 if idx_val is not None:
-                    acc = accuracy(torch.log_softmax(evaluate(params), 1),
-                                   labels, idx_val)
-                    take = acc > best_acc
-                    best_acc.copy_(torch.where(take, acc, best_acc))
-                    for b, p in zip(best, leaves):
-                        b.copy_(torch.where(take, p, b))
-                    accs.index_copy_(0, epoch, acc.reshape(1))
-                epoch.add_(1)
+                    idx_val = torch.as_tensor(np.asarray(idx_val),
+                                              dtype=torch.int64, device=dev)
 
-        marks = Marks(dev)
-        if jit_loop:
-            with self.timers("fit_scan").d:
-                CapturedLoop(step, dev, gen).run(num_epochs, set_rate,
-                                                 marks)
-        else:
-            for e in range(num_epochs):
-                set_rate(e)
-                marks.mark()
-                step()
-            marks.mark()
-        self.epoch_ms = marks.intervals_ms()
+                if self.params is None:
+                    self.params = self.init_params()
+                gen = torch.Generator(device=dev).manual_seed(self.seed + 1)
+                self._epochs_done = 0
+                adam_state, schedule_at = None, 0
+                if resume_from is not None:
+                    from gcn_tpu_torch.utils.checkpoint import (
+                        load_training_state)
 
-        losses = losses.tolist()
-        accs = accs.tolist() if idx_val is not None else []
-        self.history = [
-            {"epoch": self._epochs_done + e, "loss_train": loss_e,
-             **({"acc_val": accs[e]} if accs else {})}
-            for e, loss_e in enumerate(losses)]
-        if verbose:
-            for e in range(0, num_epochs, print_freq):
-                msg = f"Epoch {e}/{num_epochs} loss {losses[e]:.4f}"
-                if accs:
-                    msg += f" val_acc {accs[e]:.4f}"
-                print(msg)
-        self.opt_state = opt.state_dict()["state"]
-        self._schedule_at = schedule_at + num_epochs
-        self._final_params = snapshot(params)
-        self._rng_state = gen.get_state()
-        self._epochs_done += num_epochs
-        if idx_val is not None:
-            self.best_acc = float(best_acc)
-            self.params = best_params
-        else:
-            self.params = self._final_params
-        self.output = evaluate(self.params)
-        self._labels = labels
-        return self
+                    state = load_training_state(resume_from, self.params,
+                                                adam_index=self._ADAM_INDEX,
+                                                schedule=True)
+                    self.params, adam_state = state.params, state.adam_state
+                    self._epochs_done = state.iteration
+                    schedule_at = state.schedule_count
+                    state.restore_generator(gen)
+                    if idx_val is not None:
+                        import warnings
+
+                        warnings.warn(
+                            "resume_from restores params/optimizer/rng but "
+                            "NOT the best-val snapshot: best tracking "
+                            "restarts here")
+
+                params = {name: {k: t.detach().clone().requires_grad_(True)
+                                 for k, t in layer.items()}
+                          for name, layer in self.params.items()}
+                leaves = [t for _, t in named_leaves(params)]
+                # MultiStepLR's rate, set before each epoch: on a CUDA device
+                # a tensor that the captured epoch reads, filled at a
+                # milestone
+                rate = self.lr_at(schedule_at)
+                lr = (torch.tensor(rate, device=dev) if dev.type == "cuda"
+                      else rate)
+                opt = adam_l2(leaves, lr, self.weight_decay)
+                if adam_state:
+                    full = opt.state_dict()
+                    full["state"] = adam_state
+                    opt.load_state_dict(full)
+
+                def set_rate(epoch):
+                    nonlocal rate
+                    new = self.lr_at(schedule_at + epoch)
+                    if new == rate:
+                        return
+                    rate = new
+                    for group in opt.param_groups:
+                        if isinstance(group["lr"], torch.Tensor):
+                            group["lr"].fill_(new)
+                        else:
+                            group["lr"] = new
+
+                # the training-invariant layer-1 aggregation: GX in column
+                # chunks, and the row sums for the bias term (hgnn_forward's
+                # expansion)
+                with self.timers("hoist_gx").d as t:
+                    gx = t.fence(hoist_spmm(adj, x))
+                with torch.no_grad():
+                    g_rowsum = spmm(adj, x.new_ones((x.shape[0], 1)))[:, 0]
+
+                def evaluate(p):
+                    with torch.no_grad():
+                        return hgnn_forward(p, None, adj, train=False, gx=gx,
+                                            g_rowsum=g_rowsum)
+
+                best_params = snapshot(params)
+                best = [t for _, t in named_leaves(best_params)]
+                best_acc = torch.tensor(-float("inf"), device=dev)
+                epoch = torch.zeros(1, dtype=torch.int64, device=dev)
+                losses = torch.full((num_epochs,), float("nan"), device=dev)
+                accs = torch.full((num_epochs,), float("nan"), device=dev)
+
+                def step():
+                    """One epoch: the training step, its loss and the
+                    best-val select, recorded at index ``epoch`` of the
+                    device buffers."""
+                    opt.zero_grad(set_to_none=True)
+                    logits = hgnn_forward(params, None, adj,
+                                          dropout=self.dropout, train=True,
+                                          generator=gen, gx=gx,
+                                          g_rowsum=g_rowsum)
+                    loss = cross_entropy(logits, labels, idx_train)
+                    loss.backward()
+                    opt.step()
+                    with torch.no_grad():
+                        losses.index_copy_(0, epoch,
+                                           loss.detach().reshape(1))
+                        if idx_val is not None:
+                            acc = accuracy(
+                                torch.log_softmax(evaluate(params), 1),
+                                labels, idx_val)
+                            take = acc > best_acc
+                            best_acc.copy_(torch.where(take, acc, best_acc))
+                            for b, p in zip(best, leaves):
+                                b.copy_(torch.where(take, p, b))
+                            accs.index_copy_(0, epoch, acc.reshape(1))
+                        epoch.add_(1)
+
+                marks = Marks(dev)
+
+            with span("fit.loop"):
+                if jit_loop:
+                    with self.timers("fit_scan").d:
+                        CapturedLoop(step, dev, gen).run(num_epochs,
+                                                         set_rate, marks)
+                else:
+                    with span("loop.replay", iters=num_epochs):
+                        for e in range(num_epochs):
+                            set_rate(e)
+                            marks.mark()
+                            step()
+                    marks.mark()
+
+            with span("fit.finish"):
+                self.epoch_ms = marks.intervals_ms()
+
+                losses = losses.tolist()
+                accs = accs.tolist() if idx_val is not None else []
+                self.history = [
+                    {"epoch": self._epochs_done + e, "loss_train": loss_e,
+                     **({"acc_val": accs[e]} if accs else {})}
+                    for e, loss_e in enumerate(losses)]
+                if verbose:
+                    for e in range(0, num_epochs, print_freq):
+                        msg = f"Epoch {e}/{num_epochs} loss {losses[e]:.4f}"
+                        if accs:
+                            msg += f" val_acc {accs[e]:.4f}"
+                        print(msg)
+                self.opt_state = opt.state_dict()["state"]
+                self._schedule_at = schedule_at + num_epochs
+                self._final_params = snapshot(params)
+                self._rng_state = gen.get_state()
+                self._epochs_done += num_epochs
+                if idx_val is not None:
+                    self.best_acc = float(best_acc)
+                    self.params = best_params
+                else:
+                    self.params = self._final_params
+                self.output = evaluate(self.params)
+                self._labels = labels
+                return self
 
     @property
     def median_epoch_ms(self) -> float:

@@ -46,16 +46,10 @@ import torch
 from gcn_tpu_torch.ops import _build
 from gcn_tpu_torch.ops._align import aligned_rows
 from gcn_tpu_torch.tile.ell import walk_split
+from gcn_tpu_torch.utils.timers import counters
 
 MAX_SPLIT_PARTS = 16  # K1's largest cluster (non-portable above 8)
-
-# calls of K1; each adds one (read by chip_smoke.py), and one to the count
-# of its width k (x's column count). These count the wrapper's host calls,
-# each one or two kernel launches (``WalkSplit.launches``): a call inside a
-# CUDA graph capture counts once, and the graph's replays
-# (train/capture.py) launch K1 again without a call
-spmm_ell_launches = 0
-spmm_ell_launches_by_k = {}
+_BY_K = "spmm_ell_k"  # K1's calls at width k count as "spmm_ell_k<k>"
 
 _lib = None
 
@@ -126,7 +120,6 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False,
     must be contiguous, and any other row stride or alignment than K1's
     vector loads take is copied (``aligned_rows``). ``plan``: the walk
     split plan of ``win_off`` (``_plan_of``)."""
-    global spmm_ell_launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("K1 takes float32 or bfloat16 x")
     if vals.dtype != torch.float32:
@@ -169,9 +162,19 @@ def _ell_spmm_kernel(x, cols, vals, win_off, n_out, products_bf16=False,
         int(x.dtype == torch.bfloat16), int(products_bf16), stream)
     if rc != 0:
         raise RuntimeError(f"K1 (ell_spmm) launch failed: CUDA error {rc}")
-    spmm_ell_launches += 1
-    spmm_ell_launches_by_k[k] = spmm_ell_launches_by_k.get(k, 0) + 1
+    # a host call of one or two kernel launches (``WalkSplit.launches``);
+    # a captured graph's replays launch K1 again without one
+    counters["spmm_ell"] += 1
+    counters[f"{_BY_K}{k}"] += 1
     return out
+
+
+def calls_by_k(counts) -> dict:
+    """K1's calls by width k in ``counts`` (``utils.timers.counters``, or
+    a span's ``counts``), in order of k."""
+    return dict(sorted((int(name[len(_BY_K):]), n)
+                       for name, n in counts.items()
+                       if name.startswith(_BY_K)))
 
 
 def _ell_spmm_plain(x, cols, vals, win, win_off, n_out,

@@ -16,8 +16,9 @@ never through ``device_adjacency``.
     SpMM is two kernel launches: the plan's heavy windows, each split
     across a thread block cluster, on a side stream forked from the
     current one, and beside them its light ones; the current stream waits
-    for both. It counts once in ``spmm_panel_launches`` (a host call: the
-    replays of a captured CUDA graph launch K2 without one). Under a
+    for both. It counts once in ``counters["spmm_panel"]``
+    (``utils/timers.py``; a host call: the replays of a captured CUDA graph
+    launch K2 without one). Under a
     capture the fork and the join are recorded into the graph; the side
     stream, its events and the kernels' shared-memory limit are made at
     the first call, which a captured fit makes in its eager warm-up;
@@ -47,9 +48,7 @@ import torch
 from gcn_tpu_torch.ops import _build
 from gcn_tpu_torch.ops._align import aligned_rows
 from gcn_tpu_torch.tile.format import SPLIT_PARTS
-
-# SpMMs through K2 (each one or two kernel launches); read by chip_smoke.py
-spmm_panel_launches = 0
+from gcn_tpu_torch.utils.timers import counters
 
 _lib = None
 
@@ -98,7 +97,6 @@ def _panel_spmm_kernel(x, cols, vals, local_row, win_off, r, n_out, plan):
     a side stream) and its light ones. Raises on anything it cannot take
     and on a launch error (also when R is too tall for the window's sum to
     fit shared memory)."""
-    global spmm_panel_launches
     if x.dtype != torch.float32 or vals.dtype != torch.float32:
         raise TypeError("K2 takes float32 x and vals")
     heavy, parts, light = plan
@@ -126,7 +124,7 @@ def _panel_spmm_kernel(x, cols, vals, local_row, win_off, r, n_out, plan):
         n_out, r, cols.shape[1], k, ldx, stream)
     if rc != 0:
         raise RuntimeError(f"K2 (panel_spmm) launch failed: CUDA error {rc}")
-    spmm_panel_launches += 1
+    counters["spmm_panel"] += 1
     return out
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj, segment_lengths
+from gcn_tpu_torch.utils.timers import counters
 
 
 def segment_sum(prod, row_len):
@@ -99,7 +100,8 @@ def gather_rows(table: torch.Tensor, rows) -> torch.Tensor:
 
 def _segment_spmm(cols, vals, x, row_len):
     """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]] over row-sorted
-    edges with ``row_len`` edges a row."""
+    edges with ``row_len`` edges a row; one count of ``spmm_coo``."""
+    counters["spmm_coo"] += 1
     return segment_sum(x[cols] * vals.unsqueeze(1).to(x.dtype), row_len)
 
 

@@ -44,11 +44,11 @@ change change parent``):
     events around each of 10 steps, each step waited for before the next
     (the time a user's eager loop takes a step);
   * ``eager_profile`` / ``replay_profile``: 10 eager steps and 10 replays
-    of the captured step under torch.profiler (this file's copy of
+    of the captured step under torch.profiler (this file's own
     ``chain_timing.device_busy``): wall and device-busy ms a step, the
-    device ms a step of the COO product's gather and its ``index_add_``
-    or segment sum (the multiply is an elementwise kernel, listed by
-    name) and the kernels that take most device time, by name.
+    device ms a step (``kernel_ms``) of the COO product's gather and its
+    ``index_add_`` or segment sum (the multiply is an elementwise kernel,
+    listed by name) and the kernels that take most device time, by name.
 
 One JSON line per ROOT and hidden width, then the card's name and power
 limit. The package is imported from ROOT; no kernel is built (the COO
@@ -62,7 +62,6 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 REPS = 30
 CHUNKS = (16, 32, 64, 128)
@@ -204,40 +203,6 @@ def _captured_equal(fn, x, eager):
     return torch.equal(out, eager)
 
 
-def _profile(step, steps):
-    """``step`` run 3 times, then ``steps`` times under torch.profiler:
-    wall and device-busy ms a step, the COO product's device ms a step and
-    the kernels that take most device time (ms a step, by name)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for evt in prof.events():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                             + evt.time_range.elapsed_us() / 1e3 / steps)
-    busy = sum(by_name.values())
-    coo = sum(ms for name, ms in by_name.items()
-              if any(s in name for s in COO_NEEDLES))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
-    return {"wall_ms": wall_ms / steps, "busy_ms": busy,
-            "busy_share": busy * steps / wall_ms if wall_ms else 0.0,
-            "coo_ms": coo,
-            "top": [[round(ms, 5), name[:100]] for name, ms in top]}
-
-
 def _eager_synced_ms(step, steps):
     """Median ms of ``steps`` eager steps, CUDA events around each, each
     step waited for before the next."""
@@ -303,10 +268,12 @@ def time_root_steps(root):
             opt.step()
 
         row["eager_synced_ms"] = _eager_synced_ms(step, PROFILE_STEPS)
-        row["eager_profile"] = _profile(step, PROFILE_STEPS)
+        row["eager_profile"] = _timing.device_busy(
+            step, PROFILE_STEPS, COO_NEEDLES, top=TOP_KERNELS)
         loop = CapturedLoop(step, dev)
         loop.run(WARMUP + 1)        # the eager warm-up, then the capture
-        row["replay_profile"] = _profile(loop.graph.replay, PROFILE_STEPS)
+        row["replay_profile"] = _timing.device_busy(
+            loop.graph.replay, PROFILE_STEPS, COO_NEEDLES, top=TOP_KERNELS)
         print(json.dumps(row), flush=True)
         del model, loop, opt, params
         torch.cuda.empty_cache()

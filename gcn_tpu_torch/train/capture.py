@@ -28,11 +28,15 @@ early still replays its stopped iterations (a graph has no branch), and
 those advance the generator too; ``generator_state_after(n)`` is the state
 that ``n`` executed iterations leave, which the fit sets at the end.
 
-Kernel launch counters (``spmm_ell_launches``, ``spmm_panel_launches``)
-count host calls of the wrappers: in a captured loop, the warm-up
-iterations and the one captured call. The replays launch the captured
-kernels again without a host call, so the kernels' launches in a captured
-fit are counted from the profiler's kernel records (``chip_smoke.py``).
+``run`` opens three spans (``utils/timers.py``): ``loop.warmup`` (the
+eager iterations), ``loop.capture`` (on the card) and ``loop.replay`` (the
+rest: replays on the card, plain calls on the CPU), each with its
+``iters``. The call counters (``utils.timers.counters``) count host calls
+of the wrappers: in a captured loop, the warm-up iterations and the one
+captured call, which ``loop.capture``'s ``counts`` hold. The replays
+launch the captured kernels again without a host call, so the kernels'
+launches in a captured fit are counted from the profiler's kernel records
+(``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from gcn_tpu_torch.utils.timers import Marks
+from gcn_tpu_torch.utils.timers import Marks, span
 
 # eager iterations before the capture: the first creates Adam's state, the
 # second runs the steady-state path once before it is captured
@@ -95,7 +99,8 @@ class CapturedLoop:
         """Run ``n`` iterations. ``before(i)`` runs on the host before
         iteration ``i`` (it may enqueue device work, such as a learning
         rate's ``fill_``); ``marks`` is stamped before every iteration and
-        after the last."""
+        after the last, so the capture falls in the last warm-up
+        iteration's interval."""
         self._states = []
         self._note_state()
         if not self.cuda:
@@ -109,18 +114,30 @@ class CapturedLoop:
         caller.wait_stream(side)
 
     def _run(self, n, before, marks):
-        for i in range(n):
+        def start(i):
             if before is not None:
                 before(i)
             if marks is not None:
                 marks.mark()
-            if not self.cuda or i < WARMUP:
+
+        warm = min(n, WARMUP)
+        with span("loop.warmup", iters=warm):
+            for i in range(warm):
+                start(i)
                 self.body()
                 self._note_state()
-                continue
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
+        if n > warm:
+            if self.cuda and self.graph is None:
+                with span("loop.capture"):
+                    self._capture()
+            with span("loop.replay", iters=n - warm):
+                for i in range(warm, n):
+                    start(i)
+                    if self.cuda:
+                        self.graph.replay()
+                    else:
+                        self.body()
+                        self._note_state()
         if marks is not None:
             marks.mark()
         if self.generator is not None and self.graph is not None:

@@ -248,12 +248,32 @@ def stamp(device) -> dict:
     return meta
 
 
-def device_busy(step, steps: int = 10, needle: str = "ell_spmm") -> dict:
+def covered(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: time that
+    two streams are both busy counts once."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def device_busy(step, steps: int = 10, needles=("ell_spmm",),
+                top: int = 0) -> dict:
     """``step`` run 3 times, then ``steps`` times under torch.profiler:
     the wall ms a step (the profiler's own host cost included), the device
-    busy ms a step (kernels, copies and sets), their ratio ``busy_share``,
-    the device activities a step and the device ms a step of the kernels
-    whose name holds ``needle`` (K1's by default). On the card only."""
+    busy ms a step (the union of its kernels', copies' and sets' intervals,
+    so overlapping streams count once), their ratio ``busy_share``, the
+    device activities a step, the device ms a step of the kernels whose
+    name holds one of ``needles`` (K1's by default) and, with ``top``, the
+    ``top`` kernels that take most device time ([ms a step, name]). On the
+    card only."""
     import time
 
     import torch
@@ -269,17 +289,23 @@ def device_busy(step, steps: int = 10, needle: str = "ell_spmm") -> dict:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = kernel = 0.0
-    n = 0
+    intervals, by_name = [], {}
     for evt in prof.events():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(evt, "is_user_annotation", False)):
             continue
-        ms = evt.time_range.elapsed_us() / 1e3
-        busy += ms
-        n += 1
-        if needle in evt.name:
-            kernel += ms
-    return {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
-            "busy_share": busy / wall_ms if wall_ms else 0.0,
-            "activities": n / steps, "kernel_ms": kernel / steps}
+        intervals.append((evt.time_range.start, evt.time_range.end))
+        by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                             + evt.time_range.elapsed_us() / 1e3)
+    busy = covered(intervals) / 1e3
+    kernel = sum(ms for name, ms in by_name.items()
+                 if any(s in name for s in needles))
+    out = {"wall_ms": wall_ms / steps, "busy_ms": busy / steps,
+           "busy_share": busy / wall_ms if wall_ms else 0.0,
+           "activities": len(intervals) / steps,
+           "kernel_ms": kernel / steps}
+    if top:
+        most = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        out["top"] = [[round(ms / steps, 5), name[:100]]
+                      for name, ms in most]
+    return out

@@ -14,15 +14,44 @@ epochs in both loop flavors, and a captured fit's replays
 (``train/capture.py``), whose intervals become the samples of the "step"
 timer (``Timer.add``) beside the ``fit_scan`` timer of the whole loop, so
 that step and epoch medians read alike in both flavors.
+
+The fit's phases are spans (``span``): ``fit``, the root of each fit
+(``train/loop.fit_gcn``, ``HGNN.fit``), and its children ``fit.prepare``
+(entry to the first iteration), ``fit.loop`` (the ``fit_scan`` region, its
+wait for the device included) and ``fit.finish`` (the host reads and the
+final evaluation); inside ``fit.loop``, ``CapturedLoop.run`` opens
+``loop.warmup``, ``loop.capture`` (on the card) and ``loop.replay``. A
+span is a shared no-op unless a ``recording()`` is open, which collects
+the finished spans, or ``torch.profiler`` is tracing, where each span is
+also a ``record_function`` range on the profiler's clock, beside the
+kernels.
+No span is opened inside a captured iteration.
+
+``counters`` counts the program's host calls by name: ``spmm_ell`` (K1,
+``ops/ell_spmm.py``) and ``spmm_ell_k<k>`` (K1 at width k), ``spmm_panel``
+(K2, ``ops/panel_spmm.py``) and ``spmm_coo`` (each product of the COO
+SpMM, ``ops/spmm.py``, forward or backward). A call inside a CUDA graph
+capture counts once and the graph's replays count nothing, so a captured
+fit's calls an iteration are the ``counts`` of its ``loop.capture`` span.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
+import itertools
 import statistics
 import time
 from typing import Dict, List, Optional
 
 import torch
+
+# the program's host calls by name (see the module's docstring)
+counters: collections.Counter = collections.Counter()
+
+# the root span of a fit; every span inside it carries its id
+FIT = "fit"
 
 
 class Timer:
@@ -154,3 +183,106 @@ class Marks:
             return [a.elapsed_time(b)
                     for a, b in zip(self._marks, self._marks[1:])]
         return [(b - a) / 1e6 for a, b in zip(self._marks, self._marks[1:])]
+
+
+@dataclasses.dataclass
+class Span:
+    """A finished span: its ``name``, its ``id``, the id of its ``fit``
+    (the enclosing ``fit`` span's, None outside one) and of its ``parent``
+    span, its host start and end (``time.perf_counter_ns``), its ``attrs``
+    (such as ``iters``, the iterations it ran) and ``counts``, the increase
+    of each of ``counters`` over it."""
+
+    name: str
+    id: int
+    fit: Optional[int]
+    parent: Optional[int]
+    start_ns: int
+    end_ns: int
+    attrs: dict
+    counts: dict
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+_recordings: List[List[Span]] = []   # the open recordings, innermost last
+_open: List["_OpenSpan"] = []        # the open spans, innermost last
+_ids = itertools.count()
+
+
+class _OpenSpan:
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        parent = _open[-1] if _open else None
+        self.id = next(_ids)
+        self.parent = None if parent is None else parent.id
+        self.fit = (self.id if self.name == FIT
+                    else None if parent is None else parent.fit)
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._before = dict(counters)
+        _open.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        _open.remove(self)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if _recordings:
+            before = self._before
+            counts = {k: v - before.get(k, 0) for k, v in counters.items()
+                      if v != before.get(k, 0)}
+            done = Span(self.name, self.id, self.fit, self.parent,
+                        self.start_ns, end_ns, self.attrs, counts)
+            for spans in _recordings:
+                spans.append(done)
+        return False
+
+
+class _NoSpan:
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, **attrs):
+    """A context manager around one phase of the program, named ``name``
+    with attributes ``attrs`` (``set`` adds more inside it). Inside a
+    ``recording()`` the finished span is recorded; under an active
+    ``torch.profiler`` it is a ``record_function`` range. Otherwise it is
+    a shared no-op."""
+    if not _recordings and not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return _OpenSpan(name, attrs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list to which each span that finishes inside the block is
+    appended, children before their parent."""
+    spans: List[Span] = []
+    _recordings.append(spans)
+    try:
+        yield spans
+    finally:
+        _recordings.pop()

@@ -129,3 +129,57 @@ def test_smi_line_takes_the_first_card(monkeypatch):
     Done.stdout = ""
     with pytest.raises(RuntimeError):
         ct.smi_line()
+
+
+def test_covered_counts_overlapping_intervals_once():
+    assert ct.covered([]) == 0.0
+    assert ct.covered([(0.0, 4.0), (1.0, 2.0), (3.0, 6.0), (8.0, 9.0),
+                       (9.0, 10.0)]) == 8.0
+    assert ct.covered([(5.0, 7.0), (0.0, 1.0)]) == 3.0
+
+
+def test_device_busy_takes_the_union_of_two_streams(monkeypatch):
+    """Two streams busy over the same 0-6 us, and a copy after a gap:
+    the union is 8 us where the sum of the intervals is 12."""
+    from types import SimpleNamespace
+
+    import torch.profiler as tp
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(name, start, end, device=cuda, annotation=False):
+        return SimpleNamespace(
+            name=name, device_type=device, is_user_annotation=annotation,
+            time_range=SimpleNamespace(start=start, end=end,
+                                       elapsed_us=lambda: end - start))
+
+    events = [event("ell_spmm_kernel", 0.0, 4.0),
+              event("gemm", 2.0, 6.0),
+              event("ell_spmm_kernel", 4.0, 5.0),
+              event("Memcpy HtoD", 8.0, 10.0),
+              event("annotation", 0.0, 10.0, annotation=True),
+              event("aten::mm", 0.0, 10.0, device=cpu)]
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return events
+
+    monkeypatch.setattr(tp, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    out = ct.device_busy(lambda: calls.append(1), steps=2, top=2)
+    assert len(calls) == 5
+    assert out["busy_ms"] == pytest.approx(8e-3 / 2)
+    assert out["activities"] == 2.0
+    assert out["kernel_ms"] == pytest.approx(5e-3 / 2)
+    assert out["top"] == [[round(5e-3 / 2, 5), "ell_spmm_kernel"],
+                          [round(4e-3 / 2, 5), "gemm"]]

@@ -28,6 +28,7 @@ from gcn_tpu_torch.ops import panel_spmm as ps
 from gcn_tpu_torch.tile import panel_adjacency
 from gcn_tpu_torch.tile.ell import degree_sort_order, ell_adjacency
 from gcn_tpu_torch.tile.tiler import default_split_slots, split_plan
+from gcn_tpu_torch.utils.timers import counters
 
 
 @pytest.fixture
@@ -73,11 +74,11 @@ def test_kernel_matches_plain_on_card(cuda, k, hub_split):
     adj = ell_adjacency(g, r=8, k_pad=32, hub_split=hub_split, device=cuda)
     assert (adj.n_hub > 0) == hub_split
     x = torch.randn(g.shape[0], k, device=cuda)
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     got = es.ell_spmm(x, adj.cols, adj.vals, adj.win, adj.win_off,
                       adj.row_space)
     torch.cuda.synchronize()
-    assert es.spmm_ell_launches == before + 1
+    assert counters["spmm_ell"] == before + 1
     _close(got, es._ell_spmm_plain(x, adj.cols, adj.vals, adj.win,
                                    adj.win_off, adj.row_space))
 
@@ -148,10 +149,10 @@ def test_kernel_bf16_options_match_plain_on_card(cuda, k, option, rtol):
     x = torch.randn(g.shape[0], k, device=cuda)
     arrays = (adj.cols, adj.vals, adj.win, adj.win_off)
     opts = {option: True}
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     got = es.ell_spmm(x, *arrays, adj.row_space, **opts)
     torch.cuda.synchronize()
-    assert es.spmm_ell_launches == before + 1
+    assert counters["spmm_ell"] == before + 1
     want = es.ell_spmm(x.cpu(), *(a.cpu() for a in arrays), adj.row_space,
                        **opts)
     if option == "table_bf16":
@@ -199,10 +200,10 @@ def test_panel_kernel_matches_plain_on_card(cuda, k, r, nb):
         for t in (False, True):
             arrays, n_in, n_out, plan = _panel_direction(adj, t)
             x = torch.randn(n_in, k, device=cuda)
-            before = ps.spmm_panel_launches
+            before = counters["spmm_panel"]
             got = ps.panel_spmm(x, *arrays, adj.r, n_out, plan)
             torch.cuda.synchronize()
-            assert ps.spmm_panel_launches == before + 1, name
+            assert counters["spmm_panel"] == before + 1, name
             want = ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out)
             _close(got, want)
 
@@ -434,10 +435,10 @@ def test_panel_split_windows_match_plain_on_card(cuda, split_slots, k):
         assert adj.heavy[0] == 0
     arrays, n_in, n_out, plan = _panel_direction(adj, False)
     x = torch.randn(n_in, k, device=cuda)
-    before = ps.spmm_panel_launches
+    before = counters["spmm_panel"]
     got = ps.panel_spmm(x, *arrays, adj.r, n_out, plan)
     torch.cuda.synchronize()
-    assert ps.spmm_panel_launches == before + 1
+    assert counters["spmm_panel"] == before + 1
     _close(got, ps._panel_spmm_plain(x, *arrays[:4], adj.r, n_out))
 
 
@@ -466,10 +467,10 @@ def test_kernel_on_k_pad_128_layout_on_card(cuda, k):
     for t in (False, True):
         arrays = _ell_arrays(adj, t)
         x = torch.randn(g.shape[0], k, device=cuda)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.ell_spmm(x, *arrays)
         torch.cuda.synchronize()
-        assert es.spmm_ell_launches == before + 1
+        assert counters["spmm_ell"] == before + 1
         _close(got, es._ell_spmm_plain(x, *arrays))
 
 
@@ -498,11 +499,11 @@ def test_kernel_on_hypergraph_factors_on_card(cuda, k_pad):
     ct = torch.randn(two_hop.shape[0], 40)
     spmm(two_hop, x).backward(ct)
     xc = x.detach().to(cuda).requires_grad_(True)
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     out = spmm(TwoHopAdj(*(a.to(cuda) for a in adjs)), xc)
     out.backward(ct.to(cuda))
     torch.cuda.synchronize()
-    assert es.spmm_ell_launches == before + 4
+    assert counters["spmm_ell"] == before + 4
     _close(xc.grad.cpu(), x.grad)
 
 
@@ -524,11 +525,11 @@ def test_kernel_on_freq_split_parts_on_card(cuda, k):
     out = spmm_ell_freq(fs, x)
     out.backward(ct)
     xc = x.detach().to(cuda).requires_grad_(True)
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     out_c = spmm_ell_freq(fs_c, xc)
     out_c.backward(ct.to(cuda))
     torch.cuda.synchronize()
-    assert es.spmm_ell_launches == before + 4
+    assert counters["spmm_ell"] == before + 4
     _close(out_c.detach().cpu(), out.detach())
     _close(xc.grad.cpu(), x.grad)
 
@@ -592,10 +593,10 @@ def test_kernel_on_sharded_parts_on_card(cuda, k, part, t):
             if t else (a.cols, a.vals, a.win, a.win_off, a.n_rows,
                        a.n_cols))
         x = torch.randn(n_in, k, device=cuda)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.ell_spmm(x, cols, vals, win, win_off, n_out)
         torch.cuda.synchronize()
-        assert es.spmm_ell_launches == before + 1
+        assert counters["spmm_ell"] == before + 1
         _close(got, es._ell_spmm_plain(x.double(), cols, vals.double(), win,
                                        win_off, n_out).float())
 
@@ -626,11 +627,11 @@ def test_sharded_fit_on_card_matches_cpu(cuda):
         params = params_from_numpy(p0, device)
         opt = adam_l2([t.requires_grad_(True)
                        for _, t in named_leaves(params)])
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
                   for i in range(2)]
         lp = eval_fn(params, adj, xs).cpu()
-        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before)
+        runs[str(device)] = (losses, lp, counters["spmm_ell"] - before)
     (l_cpu, lp_cpu, k1_cpu), (l_card, lp_card, k1_card) = runs.values()
     assert k1_cpu == 0
     # per shard and step, forward: layer 1 interior + two halo chunks (32
@@ -691,10 +692,10 @@ def test_kernel_on_sharded_parts_with_bf16_on_card(cuda, option, part):
     for a in parts[part == "halo"]:
         assert getattr(a, option)
         x = torch.randn(a.n_cols, 32, device=cuda)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.spmm_ell(a, x)
         torch.cuda.synchronize()
-        assert es.spmm_ell_launches == before + 1
+        assert counters["spmm_ell"] == before + 1
         if option == "table_bf16":
             want = es._ell_spmm_plain(x.to(torch.bfloat16).double(), a.cols,
                                       a.vals.double(), a.win, a.win_off,
@@ -738,10 +739,10 @@ def test_kernel_on_monolithic_and_split_parts_on_card(cuda, k, part, plan,
             if t else (a.cols, a.vals, a.win, a.win_off, a.n_rows,
                        a.n_cols))
         x = torch.randn(n_in, k, device=cuda)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.ell_spmm(x, cols, vals, win, win_off, n_out)
         torch.cuda.synchronize()
-        assert es.spmm_ell_launches == before + 1
+        assert counters["spmm_ell"] == before + 1
         _close(got, es._ell_spmm_plain(x.double(), cols, vals.double(), win,
                                        win_off, n_out).float())
 
@@ -807,11 +808,11 @@ def test_sharded_flavors_on_card_match_cpu(cuda, flavor, launches):
         params = params_from_numpy(p0, device)
         opt = adam_l2([t.requires_grad_(True)
                        for _, t in named_leaves(params)])
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
                   for i in range(2)]
         lp = eval_fn(params, adj, xs).cpu()
-        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before)
+        runs[str(device)] = (losses, lp, counters["spmm_ell"] - before)
     (l_cpu, lp_cpu, k1_cpu), (l_card, lp_card, k1_card) = runs.values()
     assert k1_cpu == 0
     assert k1_card == launches
@@ -1004,13 +1005,13 @@ def test_captured_gcn_fit_matches_eager_on_card(cuda, layout):
     if layout == "ell":
         g = _hub_graph()
         adj = ell_adjacency(g, r=8, k_pad=32, device=cuda)
-        needle, counter = "ell_spmm", lambda: es.spmm_ell_launches
+        needle, counter = "ell_spmm", lambda: counters["spmm_ell"]
     else:
         g = _split_graph()
         # heavy windows beside light ones: the SpMM forks and joins
         adj = _with_split(panel_adjacency(g, device=cuda), 6000)
         assert adj.heavy.numel() > 0 and adj.light.numel() > 0
-        needle, counter = "panel_spmm", lambda: ps.spmm_panel_launches
+        needle, counter = "panel_spmm", lambda: counters["spmm_panel"]
     n = g.shape[0]
     rng = np.random.default_rng(5)
     x = torch.tensor(rng.standard_normal((n, 24)), dtype=torch.float32,
@@ -1192,11 +1193,11 @@ def test_model_axis_step_on_card_matches_cpu(cuda, flavor, parts):
         params = params_from_numpy(p0, device)
         opt = adam_l2([t.requires_grad_(True)
                        for _, t in named_leaves(params)])
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         losses = [float(step(params, opt, (1, i), adj, xs, ys, ms))
                   for i in range(2)]
         lp = eval_fn(params, adj, xs).cpu()
-        runs[str(device)] = (losses, lp, es.spmm_ell_launches - before,
+        runs[str(device)] = (losses, lp, counters["spmm_ell"] - before,
                              gather_model_params(params, mesh))
     (l_cpu, lp_cpu, k1_cpu, p_cpu), (l_card, lp_card, k1_card, p_card) = \
         runs.values()
@@ -1252,10 +1253,10 @@ def test_kernel_on_k_pad_64_layout_on_card(cuda, k):
     for t in (False, True):
         arrays = _ell_arrays(adj, t)
         x = torch.randn(g.shape[0], k, device=cuda)
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         got = es.ell_spmm(x, *arrays)
         torch.cuda.synchronize()
-        assert es.spmm_ell_launches == before + 1
+        assert counters["spmm_ell"] == before + 1
         _close(got, es._ell_spmm_plain(x.double(), arrays[0],
                                        arrays[1].double(),
                                        *arrays[2:]).float())
@@ -1401,10 +1402,10 @@ def test_captured_fit_over_split_windows_matches_eager_on_card(cuda, k_pad):
     labels = torch.tensor(rng.integers(0, 5, n), device=cuda)
     idx_train = torch.arange(0, n // 2, device=cuda)
     idx_val = torch.arange(n // 2, n, device=cuda)
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     eager = _functional_fit(adj, x, labels, idx_train, idx_val, 12, False,
                             cuda)
-    host_count = es.spmm_ell_launches - before
+    host_count = counters["spmm_ell"] - before
     captured, records = _kernel_records(
         lambda: _functional_fit(adj, x, labels, idx_train, idx_val, 12,
                                 True, cuda), "ell_spmm")
@@ -1543,11 +1544,11 @@ def test_captured_v4_fit_matches_eager_on_card(cuda):
     labels = rng.integers(0, 6, g.shape[0])
     runs = {}
     for jit_loop in (False, True):
-        before = es.spmm_ell_launches
+        before = counters["spmm_ell"]
         m = GCN(48, 32, 6, seed=2, device=cuda)
         m.fit(feats, g, labels, np.arange(3000), train_iters=15,
               jit_loop=jit_loop)
-        assert es.spmm_ell_launches == before
+        assert counters["spmm_ell"] == before
         runs[jit_loop] = m
     eager, captured = runs[False], runs[True]
     assert isinstance(eager.adj_norm, CooAdj)

@@ -27,10 +27,10 @@ from gcn_tpu_torch import train_hgnn
 from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.graph import hypergraph as hg
 from gcn_tpu_torch.models.hgnn import HGNN, cross_entropy, hgnn_forward
-from gcn_tpu_torch.ops import ell_spmm as es
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
 from gcn_tpu_torch.tile.ell import EllAdj
+from gcn_tpu_torch.utils.timers import counters
 from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
@@ -258,10 +258,10 @@ def test_hgnn_fit_matches_gcn_tpu(kind, adj_kind):
 
 def test_hgnn_fit_runs_through_the_ell_path_on_cpu():
     """On the CPU, ELL-lowered G runs K1's plain version: no launch."""
-    before = es.spmm_ell_launches
+    before = counters["spmm_ell"]
     ours, _, _ = _fit_pair("chain", epochs=2)
     assert isinstance(ours.g_adj, EllAdj)
-    assert es.spmm_ell_launches == before
+    assert counters["spmm_ell"] == before
 
 
 def test_lower_area_rule():

@@ -26,6 +26,7 @@ from gcn_tpu_torch.ops import panel_spmm as ps
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import hoist_spmm, spmm
 from gcn_tpu_torch.tile import PanelAdj, panel_adjacency
+from gcn_tpu_torch.utils.timers import counters
 
 _ARRAYS = ("cols", "vals", "local_row", "row_base", "t_cols", "t_vals",
            "t_local_row", "t_row_base")
@@ -152,11 +153,11 @@ def test_hoist_over_panel_matches_whole_and_never_launches_on_cpu():
     g, _ = PANEL_GRAPHS["sbm"]()
     adj = panel_adjacency(g, device="cpu")
     x = torch.randn(g.shape[0], 80)
-    before = ps.spmm_panel_launches
+    before = counters["spmm_panel"]
     np.testing.assert_allclose(hoist_spmm(adj, x).numpy(),
                                ps.spmm_panel(adj, x).detach().numpy(),
                                rtol=1e-6, atol=1e-6)
-    assert ps.spmm_panel_launches == before
+    assert counters["spmm_panel"] == before
 
 
 def test_panel_kind_and_shape_mismatch_raise():

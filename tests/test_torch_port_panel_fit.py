@@ -33,12 +33,12 @@ from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.graph.normalize import gcn_normalize
 from gcn_tpu_torch.models.gcn_core import gcn_forward
 from gcn_tpu_torch.models.layers import auto_order
-from gcn_tpu_torch.ops import panel_spmm as ps
 from gcn_tpu_torch.ops.spmm import hoist_spmm
 from gcn_tpu_torch.reorder import reorder_graph
 from gcn_tpu_torch.tile import degree_sort_order, panel_adjacency
 from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.optim import adam_l2
+from gcn_tpu_torch.utils.timers import counters
 from torch_port_native import native_reorder  # noqa: F401 (autouse)
 
 
@@ -81,7 +81,7 @@ def test_panel_fit_matches_gcn_tpu():
 
     adj = panel_adjacency(g, device="cpu")
     feats = hoist_spmm(adj, torch.tensor(data.features[perm]))
-    before = ps.spmm_panel_launches
+    before = counters["spmm_panel"]
 
     def forward(p, train):
         return gcn_forward(p, feats, adj, orders=orders, dropout_rate=0.0,
@@ -90,7 +90,7 @@ def test_panel_fit_matches_gcn_tpu():
     ours = fit_gcn(params_from_numpy(params, "cpu"), adam_l2, forward,
                    torch.tensor(data.labels[perm]), torch.tensor(idx),
                    train_iters=steps)
-    assert ps.spmm_panel_launches == before  # the CPU runs the plain version
+    assert counters["spmm_panel"] == before  # the CPU runs the plain version
 
     got = [h["loss_train"] for h in ours.history]
     want = [float(h["loss_train"]) for h in ref.history]
