@@ -100,13 +100,16 @@ Phases (each failure exits non-zero):
      [ladder]: GCN v1-v5, which train over the COO product (``CooAdj``:
      ``adj_kind="auto"`` past 8,192 rows) on synth-arxiv in its own order:
      the row edge counts cover the padded edges; two products bit-equal,
-     forward and dX; the product against its float64 plain version at the
-     f32 tolerance (k=32 and 40, dX at 32); 5-step fits (dropout 0) card
-     against CPU from phase 6's parameters (rtol 1e-4); 20-step fits
-     (dropout 0.5, seed 15) captured against eager, bit-equal, K1 and K2
-     never launched; the product's time beside ``torch.sparse.mm``, the
+     forward and dX; the COO kernel (``ops/csrc/coo_spmm.cu``) bit-equal
+     to its plain version run on the card (k = 32, 40, 64, 128, dX at
+     32); the product against its float64 plain version at the f32
+     tolerance; 5-step fits (dropout 0) card against CPU from phase 6's
+     parameters (rtol 1e-4); 20-step fits (dropout 0.5, seed 15) captured
+     against eager, bit-equal, K1 and K2 never launched, every COO product
+     through the kernel (``spmm_coo_k<k>`` over ``spmm_coo``); the
+     kernel's time beside its plain version, ``torch.sparse.mm``, the
      bound and the former ``index_add_`` reduction (kept here only as a
-     timing reference); v4's captured and eager median step;
+     timing reference) at each k; v4's captured and eager median step;
   9. where a v6 step's time goes: 10 more eager steps under
      torch.profiler, with K1's device ms per step;
  10. resume: 10 v6 steps, ``save_state``, 10 more from it; the 20 losses
@@ -230,7 +233,8 @@ Phases (each failure exits non-zero):
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
-kernel records, and ``captured_host_calls``), K1 on the serving layouts
+kernel records, and ``captured_host_calls``), the COO kernel at [ladder]'s
+widths (its launches by width in the eager v4 fit), K1 on the serving layouts
 (with their plans), and K1 at HGNN's, the
 frequency split's and the sharded parts' shapes (every flavor's new
 layouts too, and the model axis's hidden shard), each
@@ -2352,25 +2356,43 @@ def coo_index_add(adj, x, t=False):
     return prod.new_zeros((n_out, x.shape[1])).index_add_(0, rows, prod)
 
 
+COO_WIDTHS = (32, 40, 64, 128)
+
+
+def coo_kernel_calls(counts):
+    """(the COO kernel's calls by width k, its share of the COO products)
+    in ``counts`` (``utils.timers.counters``): the ``spmm_coo_k<k>``
+    counts, and their sum over ``spmm_coo``."""
+    by_k = {int(name[len("spmm_coo_k"):]): n for name, n in counts.items()
+            if name.startswith("spmm_coo_k")}
+    total = counts["spmm_coo"]
+    return dict(sorted(by_k.items())), (sum(by_k.values()) / total
+                                        if total else None)
+
+
 def ladder_phase(dev, data, p0):
     """[ladder]: GCN v1-v5, the variants that train over the COO product
     (``adj_kind="auto"`` resolves to ``CooAdj`` past 8,192 rows), on
     synth-arxiv in its own vertex order (no reorder, as v1-v5 run): the
-    product's row edge counts; two calls bit-equal, forward and dX; the
-    product against its float64 plain version at the f32 tolerance; 5-step
-    fits (dropout 0) card against CPU from phase 6's parameters (rtol
-    1e-4); 20-step fits (dropout 0.5, seed 15) captured against eager, bit
-    for bit, with K1 and K2 never launched; the product's device ms beside
-    ``torch.sparse.mm`` and the former ``index_add_`` reduction, at k = 32
-    and 40 (layer 2's widths at hidden 32); v4's captured and eager median
-    step. Returns a summary dict, printed as one JSON line."""
+    product's row edge counts and walk order; two calls bit-equal, forward
+    and dX; the COO kernel bit-equal to its plain version (gather, weight,
+    segment sum) run on the card, at k = 32, 40, 64 and 128 and dX at 32;
+    the product against its float64 plain version at the f32 tolerance;
+    5-step fits (dropout 0) card against CPU from phase 6's parameters
+    (rtol 1e-4); 20-step fits (dropout 0.5, seed 15) captured against
+    eager, bit for bit, with K1 and K2 never launched and every COO
+    product on the card through the kernel; the kernel's device ms beside
+    its plain version, ``torch.sparse.mm``, the bound and the former
+    ``index_add_`` reduction at each k; v4's captured and eager median
+    step. Returns the kernel's row of the kernels line; its summary is
+    printed as one JSON line."""
     import torch
 
     from gcn_tpu_torch.convert import params_from_numpy
     from gcn_tpu_torch.graph.normalize import gcn_normalize
     from gcn_tpu_torch.models import GCN
     from gcn_tpu_torch.ops.adjacency import CooAdj, device_adjacency
-    from gcn_tpu_torch.ops.spmm import spmm
+    from gcn_tpu_torch.ops.spmm import _segment_spmm_plain, spmm
     from gcn_tpu_torch.utils.timers import counters
 
     t0 = time.time()
@@ -2385,21 +2407,35 @@ def ladder_phase(dev, data, p0):
     print(f"[ladder] GCN v1-v5 on synth-arxiv (own order, n={adj.n_rows}, "
           f"nnz={adj.nnz}): CooAdj of {e_pad} padded edges, row edge "
           f"counts sum {int(row_len.sum())}, longest row {row_len.max()}, "
-          f"{int((row_len == 0).sum())} empty rows ({time.time() - t0:.1f}s)",
-          flush=True)
+          f"{int((row_len == 0).sum())} empty rows, {adj.long_rows} long "
+          f"rows ({time.time() - t0:.1f}s)", flush=True)
     if int(row_len.sum()) != e_pad or (row_len < 0).any():
         fail("the COO row edge counts do not cover the padded edges")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = {k: torch.randn(adj.n_cols, k, device=dev, generator=gen)
-          for k in (32, 40)}
+          for k in COO_WIDTHS}
     ct = torch.randn(adj.n_rows, 32, device=dev, generator=gen)
 
     def dx(x):
         xg = x.clone().requires_grad_(True)
         return torch.autograd.grad(spmm(adj, xg), xg, ct)[0]
 
+    def plain(x, t=False):
+        if t:
+            return _segment_spmm_plain(adj.t_cols, adj.t_vals, x,
+                                       adj.t_row_len)
+        return _segment_spmm_plain(adj.cols, adj.vals, x, adj.row_len)
+
     check_repeat("COO spmm fwd k=32", lambda: spmm(adj, xs[32]))
     check_repeat("COO spmm dX k=32", lambda: dx(xs[32]))
+    pairs = [(f"fwd k={k}", spmm(adj, x), plain(x)) for k, x in xs.items()]
+    pairs.append(("dX k=32", dx(xs[32]), plain(ct, t=True)))
+    for name, got, want in pairs:
+        same = torch.equal(got, want)
+        print(f"  COO kernel vs plain {name}: bit-equal -> "
+              f"{'ok' if same else 'MISMATCH'}", flush=True)
+        if not same:
+            fail(f"COO kernel {name} differs from its plain version")
     errs = [compare(f"COO spmm fwd k={k}", spmm(adj, x),
                     coo_index_add(adj, x.double()))
             for k, x in xs.items()]
@@ -2429,7 +2465,7 @@ def ladder_phase(dev, data, p0):
 
     print(f"[ladder] {LADDER_STEPS}-step fits, dropout 0.5, seed {SEED}: "
           f"the default captured flavor against the eager one", flush=True)
-    steps_ms = {}
+    steps_ms, v4_launches = {}, None
     for v in LADDER:
         runs = {}
         for jit_loop in (False, True):
@@ -2442,6 +2478,11 @@ def ladder_phase(dev, data, p0):
                 fail(f"{v} launched K1 or K2 over its CooAdj")
             if not isinstance(m.adj_norm, CooAdj):
                 fail(f"{v} trained over {type(m.adj_norm).__name__}")
+            by_k, share = coo_kernel_calls(counters)
+            if share != 1.0:
+                fail(f"{v}: {share} of the COO products took the kernel")
+            if v == "v4" and not jit_loop:
+                v4_launches = by_k
             runs[jit_loop] = m
         eager, cap = runs[False], runs[True]
         if not losses_of(eager)[-1] < losses_of(eager)[0]:
@@ -2467,14 +2508,16 @@ def ladder_phase(dev, data, p0):
     for k, x in xs.items():
         times[k] = {
             "coo_ms": chain_ms(lambda y: spmm(adj, y), x, 30),
+            "plain_ms": chain_ms(plain, x, 30),
             "index_add_ms": chain_ms(lambda y: coo_index_add(adj, y), x, 30),
             "sparse_mm_ms": chain_ms(lambda y: torch.sparse.mm(csr, y), x,
                                      30),
             "bound_ms": least_ms(*spmm_work(adj.nnz, 0, adj.n_cols,
                                             adj.n_rows, k))[0]}
         r = times[k]
-        print(f"  k={k}: segment sum {r['coo_ms']:.4f} ms | the former "
-              f"index_add_ {r['index_add_ms']:.4f} ms | torch.sparse.mm "
+        print(f"  k={k}: COO kernel {r['coo_ms']:.4f} ms | plain (segment "
+              f"sum) {r['plain_ms']:.4f} ms | the former index_add_ "
+              f"{r['index_add_ms']:.4f} ms | torch.sparse.mm "
               f"{r['sparse_mm_ms']:.4f} ms | bound {r['bound_ms']:.5f} ms",
               flush=True)
     print(f"  v4 median step: {steps_ms['v4'][0]:.4f} ms captured, "
@@ -2484,7 +2527,23 @@ def ladder_phase(dev, data, p0):
                "steps_ms": {v: {"captured": c, "eager": e}
                             for v, (c, e) in steps_ms.items()}}
     print(f"[ladder] {json.dumps(summary)}", flush=True)
-    return summary
+    return {
+        "name": "coo_spmm",
+        "route": "cuda",
+        "source": "gcn_tpu_torch/ops/csrc/coo_spmm.cu",
+        "replaces": "none: gcn_tpu's COO product is XLA's gather and "
+                    "sorted segment_sum (gcn_tpu/ops/spmm.py)",
+        "use": f"synth-arxiv own order, k = {list(COO_WIDTHS)}",
+        "launches": v4_launches,
+        "bit_equal_to_plain": True,
+        "max_abs_err": max(errs),
+        "ms": [times[k]["coo_ms"] for k in COO_WIDTHS],
+        "plain_ms": [times[k]["plain_ms"] for k in COO_WIDTHS],
+        "bound_ms": [times[k]["bound_ms"] for k in COO_WIDTHS],
+        "bound_by": "bytes",
+        "library_ms": [times[k]["sparse_mm_ms"] for k in COO_WIDTHS],
+        "long_rows": adj.long_rows,
+    }
 
 
 def index_add_fold(out_virt, adj):
@@ -3199,7 +3258,7 @@ def main():
                            idx_train, init, panel_eager))
 
     wide_rows = wide_kpad_phase(dev, g, data)
-    ladder_phase(dev, data, p0)
+    coo_row = ladder_phase(dev, data, p0)
 
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
@@ -3255,8 +3314,8 @@ def main():
         "heavy_windows": padj.heavy.numel(),
         "captured_launches": captured["panel"][0],
         "captured_host_calls": captured["panel"][1],
-    }] + split_rows + wide_rows + hgnn_rows + freq_rows + dist_rows
-        + order_rows}))
+    }, coo_row] + split_rows + wide_rows + hgnn_rows + freq_rows
+        + dist_rows + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

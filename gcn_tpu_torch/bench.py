@@ -17,8 +17,8 @@ in it), so that no reader takes it for a TPU figure. Step by step, as
      hub rows' long windows are walked whole), stored edges over its time;
      ``ell_ms_train_default``: the training layout (the default hub split);
   3. ``vs_baseline``: the port's own COO ``spmm`` (``coo_adjacency``: a
-     gather and a sorted segment sum in edge order, gcn_tpu's
-     ``segment_sum``, what ``bench.py`` divides by) over K1;
+     sorted segment sum in edge order, gcn_tpu's ``segment_sum``, what
+     ``bench.py`` divides by; on the card the COO kernel) over K1;
      ``sparse_mm_ms``: ``torch.sparse.mm`` on the same CSR, the cuSPARSE
      yardstick;
   4. the roofline is the bytes bound, not ``bench.py``'s measured gather

@@ -5,9 +5,10 @@ training it is lowered onto a device as one of:
 
   * ``DenseAdj`` — a dense matrix; SpMM is ``torch.matmul``.
   * ``CooAdj``   — row-sorted COO padded to EDGE_PAD, with each row's edge
-    count; SpMM is a gather and a sum over each row's run of edges in edge
-    order (plain torch: in ``gcn_tpu`` this path is XLA's sorted
-    ``segment_sum``, not a Pallas kernel).
+    count and offsets; SpMM sums each row's run of edges in edge order:
+    on the card in one hand-written kernel (``ops/csrc/coo_spmm.cu``), on
+    the CPU as a gather and ``segment_sum`` (in ``gcn_tpu`` this path is
+    XLA's sorted ``segment_sum``, not a Pallas kernel).
   * ``EllAdj``   — the packed ELL layout of ``gcn_tpu_torch.tile.ell``,
     whose SpMM is the hand-written kernel K1 (``ops/ell_spmm.py``);
   * ``FreqSplitAdj`` — two such layouts, a hot column prefix and a cold
@@ -30,6 +31,10 @@ from gcn_tpu_torch.utils.device import resolve_device
 
 # Pad edge counts to a multiple of this, as gcn_tpu does.
 EDGE_PAD = 1024
+# A row of more edges than this is long: the card's COO kernel
+# (ops/csrc/coo_spmm.cu) gives it a whole thread block, a shorter row a few
+# lanes of a warp.
+LONG_ROW = 256
 
 
 def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
@@ -54,13 +59,27 @@ def segment_lengths(rows: np.ndarray, n_rows: int) -> np.ndarray:
     return np.bincount(rows, minlength=n_rows).astype(np.int64)
 
 
+def walk_order(row_len: np.ndarray):
+    """(rows by edge count, longest first, ties in row order; how many of
+    them are long, with more than ``LONG_ROW`` edges): the order in which
+    the card's COO kernel hands the rows out, so that no long walk starts
+    last. It does not change the order in which a row's edges are added."""
+    order = np.argsort(-np.asarray(row_len), kind="stable")
+    return order, int((np.asarray(row_len) > LONG_ROW).sum())
+
+
 @dataclasses.dataclass(frozen=True)
 class CooAdj:
     """Row-sorted COO adjacency, padded to EDGE_PAD with ``vals == 0`` and
     in-range indices (last row / column 0). ``t_*`` hold the transpose,
     aliased when symmetric. ``row_len`` / ``t_row_len`` are each
-    direction's row edge counts (``segment_lengths``), which the SpMM sums
-    by."""
+    direction's row edge counts (``segment_lengths``), which the CPU's
+    SpMM sums by; ``row_ptr`` / ``t_row_ptr`` their exclusive cumulative
+    sums (length rows + 1: row r's run of edges is ``[row_ptr[r],
+    row_ptr[r + 1])``), which the card's kernel walks by, handing the rows
+    out in the order of ``row_order`` / ``t_row_order`` (longest first,
+    ``walk_order``), whose first ``long_rows`` / ``t_long_rows`` rows hold
+    more than ``LONG_ROW`` edges."""
 
     rows: torch.Tensor  # int64[E_pad]
     cols: torch.Tensor  # int64[E_pad]
@@ -74,6 +93,12 @@ class CooAdj:
     symmetric: bool
     row_len: torch.Tensor    # int64[n_rows]
     t_row_len: torch.Tensor  # int64[n_cols]
+    row_ptr: torch.Tensor    # int64[n_rows + 1]
+    t_row_ptr: torch.Tensor  # int64[n_cols + 1]
+    row_order: torch.Tensor  # int64[n_rows]
+    t_row_order: torch.Tensor  # int64[n_cols]
+    long_rows: int
+    t_long_rows: int
 
     @property
     def shape(self):
@@ -116,26 +141,33 @@ def coo_adjacency(g: CSRGraph, *, symmetric: Optional[bool] = None,
                   device=None) -> CooAdj:
     """Row-sorted COO on ``device``: the card by default
     (``utils.device.resolve_device``), ``device="cpu"`` for the CPU; with
-    each direction's row edge counts (``segment_lengths``), made here on
-    the host so that the SpMM never waits for it."""
+    each direction's row edge counts (``segment_lengths``), offsets and
+    walk order (``walk_order``), made here on the host so that the SpMM
+    never waits for them."""
     device = resolve_device(device)
     if symmetric is None:
         symmetric = g.shape[0] == g.shape[1] and g.is_symmetric()
+
+    def upload(rows, cols, vals, n_rows):
+        row_len = segment_lengths(rows, n_rows)
+        row_ptr = np.concatenate([[0], np.cumsum(row_len)])
+        order, n_long = walk_order(row_len)
+        return [torch.from_numpy(a).to(device)
+                for a in (rows, cols, vals, row_len, row_ptr, order)] + [
+                    n_long]
+
     rows, cols, vals, e = _coo_arrays(g)
-    rows, cols, vals, row_len = (
-        torch.from_numpy(a).to(device)
-        for a in (rows, cols, vals, segment_lengths(rows, g.shape[0])))
+    fwd = upload(rows, cols, vals, g.shape[0])
     if symmetric:
-        t_rows, t_cols, t_vals, t_row_len = rows, cols, vals, row_len
+        bwd = fwd
     else:
         tr, tc, tv, _ = _coo_arrays(g.transpose(), pad_to=rows.shape[0])
-        t_rows, t_cols, t_vals, t_row_len = (
-            torch.from_numpy(a).to(device)
-            for a in (tr, tc, tv, segment_lengths(tr, g.shape[1])))
-    return CooAdj(rows=rows, cols=cols, vals=vals, t_rows=t_rows,
-                  t_cols=t_cols, t_vals=t_vals, n_rows=g.shape[0],
-                  n_cols=g.shape[1], nnz=e, symmetric=bool(symmetric),
-                  row_len=row_len, t_row_len=t_row_len)
+        bwd = upload(tr, tc, tv, g.shape[1])
+    return CooAdj(*fwd[:3], *bwd[:3], n_rows=g.shape[0], n_cols=g.shape[1],
+                  nnz=e, symmetric=bool(symmetric), row_len=fwd[3],
+                  t_row_len=bwd[3], row_ptr=fwd[4], t_row_ptr=bwd[4],
+                  row_order=fwd[5], t_row_order=bwd[5], long_rows=fwd[6],
+                  t_long_rows=bwd[6])
 
 
 def dense_adjacency(g: CSRGraph, device=None) -> DenseAdj:

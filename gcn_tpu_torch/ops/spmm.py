@@ -3,9 +3,13 @@
 One differentiable entry point, ``spmm(adj, x)``, for every representation:
 
   * ``DenseAdj`` — ``torch.matmul``;
-  * ``CooAdj``   — gather, then each row's run of edges summed in edge
-    order (``segment_sum``, gcn_tpu's sorted ``segment_sum``; no atomics,
-    so two calls are bit-equal), with the SDDMM edge-weight cotangent
+  * ``CooAdj``   — each row's run of edges summed in edge order (gcn_tpu's
+    sorted ``segment_sum``; no atomics, so two calls are bit-equal): on a
+    CUDA tensor one hand-written kernel (``csrc/coo_spmm.cu``, built by
+    ``_build.py``) that gathers, weighs and sums the x rows on chip and
+    writes each output row once, or raises; on a CPU tensor the plain
+    version, a gather and ``segment_sum``, with which the kernel is
+    bit-equal; with the SDDMM edge-weight cotangent
     dvals[e] = <g[row_e], x[col_e]>;
   * ``EllAdj``   — kernel K1 (``ops/ell_spmm.py``);
   * ``FreqSplitAdj`` — K1 on each of its two tables
@@ -15,17 +19,29 @@ One differentiable entry point, ``spmm(adj, x)``, for every representation:
     ``spmm(a1, spmm(a2, x))`` over any of the above.
 
 dX = A^T @ g always comes from the stored transpose arrays.
+
+Each COO product counts once in ``utils.timers.counters`` under
+``spmm_coo``, on either device; a launch of the kernel also counts under
+``spmm_coo_k<k>`` at its width k, so the kernel's share of the products
+is the sum of those over ``spmm_coo`` (1 on the card, 0 on the CPU).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from gcn_tpu_torch.ops import _build
+from gcn_tpu_torch.ops._align import aligned_rows
 from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj, segment_lengths
 from gcn_tpu_torch.utils.timers import counters
+
+_BY_K = "spmm_coo_k"  # a kernel call at width k counts as "spmm_coo_k<k>"
+
+_lib = None
 
 
 def segment_sum(prod, row_len):
@@ -98,11 +114,87 @@ def gather_rows(table: torch.Tensor, rows) -> torch.Tensor:
     return _GatherRows.apply(table, rows)
 
 
-def _segment_spmm(cols, vals, x, row_len):
-    """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]] over row-sorted
-    edges with ``row_len`` edges a row; one count of ``spmm_coo``."""
-    counters["spmm_coo"] += 1
+def _kernel_library():
+    global _lib
+    if _lib is None:
+        lib = _build.load_library(
+            "gcncoospmm", _build.CUDA_LIBRARIES["gcncoospmm"], "nvcc")
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.gcn_coo_spmm.restype = ctypes.c_int
+        lib.gcn_coo_spmm.argtypes = [vp, i64, vp, vp, vp, vp, i64, vp, i64,
+                                     ctypes.c_int32, vp]
+        _lib = lib
+    return _lib
+
+
+def _coo_spmm_kernel(cols, vals, x, row_ptr, order, long_rows):
+    """Launch the COO kernel on the current stream: out[r] = the sum of
+    vals[e] * x[cols[e]] over e in [row_ptr[r], row_ptr[r + 1]), in edge
+    order, the rows handed out in ``order``, whose first ``long_rows`` are
+    long (``adjacency.walk_order``). Raises on anything it cannot take and
+    on a launch error. x and vals are float32; an x whose rows are not
+    contiguous, or whose row stride or alignment the kernel's 16-byte loads
+    cannot take, is copied (``aligned_rows``)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"the COO kernel takes float32 x and vals, got "
+                        f"{x.dtype} and {vals.dtype}")
+    arrays = (("cols", cols), ("vals", vals), ("row_ptr", row_ptr),
+              ("order", order))
+    for name, t in arrays:
+        if name != "vals" and t.dtype != torch.int64:
+            raise TypeError(f"the COO kernel takes int64 {name}")
+    for name, t in arrays:
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"the COO kernel needs a contiguous 1-D {name}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    n_out, k = row_ptr.shape[0] - 1, x.shape[1]
+    if cols.shape != vals.shape or order.shape != (max(n_out, 0),) \
+            or not 0 <= long_rows <= order.shape[0]:
+        raise ValueError("cols and vals must hold one entry an edge, order "
+                         "one a row, and long_rows count some of them")
+    out = torch.empty((n_out, k), dtype=torch.float32, device=x.device)
+    if n_out <= 0 or k == 0:
+        return out
+    if k > 1 and x.stride(1) != 1:
+        x = x.contiguous()
+    x, ldx = aligned_rows(x, "the COO kernel")
+    # the current stream: under a CUDA graph capture, the capturing one
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernel_library().gcn_coo_spmm(
+        x.data_ptr(), ldx, cols.data_ptr(), vals.data_ptr(),
+        row_ptr.data_ptr(), order.data_ptr(), long_rows, out.data_ptr(),
+        n_out, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"the COO kernel's launch failed: CUDA error {rc}")
+    counters[f"{_BY_K}{k}"] += 1
+    return out
+
+
+def _segment_spmm_plain(cols, vals, x, row_len):
+    """The COO product in torch ops: gather, weight, ``segment_sum``."""
     return segment_sum(x[cols] * vals.unsqueeze(1).to(x.dtype), row_len)
+
+
+def _segment_spmm(adj, vals, x, t=False):
+    """out[r] = sum_e [rows[e] == r] vals[e] * x[cols[e]] over the
+    row-sorted edges of ``adj`` (its transpose arrays if ``t``), in edge
+    order: the kernel for a CUDA x, the plain version for a CPU x; one
+    count of ``spmm_coo`` either way."""
+    counters["spmm_coo"] += 1
+    if t:
+        cols, row_len, row_ptr, order, long_rows = (
+            adj.t_cols, adj.t_row_len, adj.t_row_ptr, adj.t_row_order,
+            adj.t_long_rows)
+    else:
+        cols, row_len, row_ptr, order, long_rows = (
+            adj.cols, adj.row_len, adj.row_ptr, adj.row_order,
+            adj.long_rows)
+    if x.device.type == "cpu":
+        return _segment_spmm_plain(cols, vals, x, row_len)
+    return _coo_spmm_kernel(cols, vals, x, row_ptr, order, long_rows)
 
 
 class _SpmmCoo(torch.autograd.Function):
@@ -110,7 +202,7 @@ class _SpmmCoo(torch.autograd.Function):
     def forward(ctx, x, vals, adj):
         ctx.adj = adj
         ctx.save_for_backward(x)
-        return _segment_spmm(adj.cols, vals, x, adj.row_len)
+        return _segment_spmm(adj, vals, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -118,8 +210,7 @@ class _SpmmCoo(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         dx = dvals = None
         if ctx.needs_input_grad[0]:
-            dx = _segment_spmm(adj.t_cols, adj.t_vals, g,
-                               adj.t_row_len).to(x.dtype)
+            dx = _segment_spmm(adj, adj.t_vals, g, t=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
             dvals = (g[adj.rows] * x[adj.cols]).sum(dim=-1).to(
                 adj.vals.dtype)

@@ -21,7 +21,10 @@ COO arrays of ``coo_adjacency``:
   * ``chunked C``: the same in two levels: each row's run cut into chunks
     of at most C edges, the chunks summed in edge order, then each row's
     chunks in chunk order;
-  * ``spmm``: the package's own ``spmm`` on the ``CooAdj``;
+  * ``spmm``: the package's own ``spmm`` on the ``CooAdj``: on the card
+    the COO kernel (``ops/csrc/coo_spmm.cu``), which ``spmm_equal``
+    compares with ``segment_sum`` (the kernel's plain version) bit for
+    bit;
   * ``torch.sparse.mm`` on the same CSR, the library yardstick;
 
 each as the median of 30 calls behind a spin kernel between CUDA events
@@ -48,11 +51,12 @@ change change parent``):
     ``chain_timing.device_busy``): wall and device-busy ms a step, the
     device ms a step (``kernel_ms``) of the COO product's gather and its
     ``index_add_`` or segment sum (the multiply is an elementwise kernel,
-    listed by name) and the kernels that take most device time, by name.
+    listed by name) or of the COO kernel, and the kernels that take most
+    device time, by name.
 
 One JSON line per ROOT and hidden width, then the card's name and power
-limit. The package is imported from ROOT; no kernel is built (the COO
-product is torch ops).
+limit. The package is imported from ROOT, and builds its COO kernel, where
+it has one, at the first product.
 """
 
 import argparse
@@ -68,8 +72,8 @@ CHUNKS = (16, 32, 64, 128)
 HIDDENS = (32, 64, 128)
 PROFILE_STEPS = 10
 # kernel names of the COO product's gather (``vectorized_gather_kernel``),
-# atomic add (``indexFuncLargeIndex``) and segment sum
-COO_NEEDLES = ("gather", "indexFunc", "segment_reduce")
+# atomic add (``indexFuncLargeIndex``) and segment sum, and the COO kernel
+COO_NEEDLES = ("gather", "indexFunc", "segment_reduce", "coo_spmm")
 TOP_KERNELS = 8
 
 
@@ -174,6 +178,9 @@ def reductions(k_list):
                         row["repeat_equal"] = torch.equal(a, a2)
                         row["captured_equal"] = _captured_equal(fn, x, a)
                 line[name] = row
+            with torch.no_grad():
+                line["spmm_equal"] = torch.equal(ways["spmm"](x),
+                                                 one_level(x))
             print(json.dumps(line), flush=True)
         del adj, csr, plans
         torch.cuda.empty_cache()

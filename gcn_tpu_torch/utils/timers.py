@@ -29,10 +29,12 @@ No span is opened inside a captured iteration.
 
 ``counters`` counts the program's host calls by name: ``spmm_ell`` (K1,
 ``ops/ell_spmm.py``) and ``spmm_ell_k<k>`` (K1 at width k), ``spmm_panel``
-(K2, ``ops/panel_spmm.py``) and ``spmm_coo`` (each product of the COO
-SpMM, ``ops/spmm.py``, forward or backward). A call inside a CUDA graph
-capture counts once and the graph's replays count nothing, so a captured
-fit's calls an iteration are the ``counts`` of its ``loop.capture`` span.
+(K2, ``ops/panel_spmm.py``), ``spmm_coo`` (each product of the COO SpMM,
+``ops/spmm.py``, forward or backward, on either device) and
+``spmm_coo_k<k>`` (a launch of its CUDA kernel at width k). A call inside
+a CUDA graph capture counts once and the graph's replays count nothing, so
+a captured fit's calls an iteration are the ``counts`` of its
+``loop.capture`` span.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 8,192 rows) against gcn_tpu's gather and sorted ``segment_sum``.
 
 The port sums each row's run of edges in edge order by the row edge
-counts made with the layout (``segment_lengths``), with no atomics. On the
+counts made with the layout (``segment_lengths``), with no atomics; the
+card's kernel, which walks the same runs by their offsets, is held to that
+plain version in ``test_torch_port_cuda.py``. On the
 CPU that is bit-equal to the ``index_add_`` it replaces, which adds in
 edge order there; gcn_tpu's XLA sums are held at the f32 tolerance of
 ``test_torch_port_sddmm.py`` (products and fits) and ``test_torch_port_
@@ -30,11 +32,13 @@ from torch_port_graphs import TOL, graphs
 from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.models import GCN
-from gcn_tpu_torch.ops.adjacency import (EDGE_PAD, coo_adjacency,
-                                         segment_lengths)
-from gcn_tpu_torch.ops.spmm import segment_sum, spmm
+from gcn_tpu_torch.ops.adjacency import (EDGE_PAD, LONG_ROW, coo_adjacency,
+                                         segment_lengths, walk_order)
+from gcn_tpu_torch.ops.spmm import (_coo_spmm_kernel, _segment_spmm_plain,
+                                    segment_sum, spmm)
 from gcn_tpu_torch.parallel.partition import shard_graph_by_rows
 from gcn_tpu_torch.parallel.spmm_dist import local_spmm
+from gcn_tpu_torch.utils.timers import counters
 
 
 def _graph(kind):
@@ -113,25 +117,110 @@ def test_segment_sum_bit_equal_to_index_add(kind, k):
                                           * adj.t_vals[:, None], adj.n_cols))
 
 
-@pytest.mark.parametrize("kind", ["symmetric", "rectangular"])
-def test_row_lengths_cover_the_padded_edges(kind):
+@pytest.mark.parametrize("kind,field", [
+    ("symmetric", "row_len"), ("rectangular", "row_len"),
+    ("symmetric", "row_ptr"), ("rectangular", "row_ptr"),
+    ("symmetric", "row_order"), ("rectangular", "row_order")],
+    ids=["symmetric", "rectangular", "symmetric-row_ptr",
+         "rectangular-row_ptr", "symmetric-row_order",
+         "rectangular-row_order"])
+def test_row_lengths_cover_the_padded_edges(kind, field):
     """Each direction's counts are non-negative, one a row, and sum to the
-    padded edge count; the padding edges are counted in row n-1; a
-    symmetric adjacency aliases them."""
+    padded edge count; the padding edges are counted in row n-1; its
+    offsets (``row_ptr``, the card kernel's) are ``[0] + cumsum`` of the
+    counts, from 0 to the padded edge count; its walk order (``row_order``,
+    ``long_rows``) is ``walk_order`` of the counts; a symmetric adjacency
+    aliases all three."""
     g, _ = _graph(kind)
     adj = coo_adjacency(g, device="cpu")
     e_pad = adj.rows.shape[0]
     assert e_pad % EDGE_PAD == 0 and e_pad > g.nnz
-    for row_len, n_out, other in ((adj.row_len, adj.n_rows, g),
-                                  (adj.t_row_len, adj.n_cols,
-                                   g.transpose())):
+    for row_len, row_ptr, order, n_long, n_out, other in (
+            (adj.row_len, adj.row_ptr, adj.row_order, adj.long_rows,
+             adj.n_rows, g),
+            (adj.t_row_len, adj.t_row_ptr, adj.t_row_order, adj.t_long_rows,
+             adj.n_cols, g.transpose())):
         assert row_len.dtype == torch.int64 and row_len.shape == (n_out,)
         assert (row_len >= 0).all() and int(row_len.sum()) == e_pad
+        if field == "row_ptr":
+            assert row_ptr.dtype == torch.int64
+            assert row_ptr.shape == (n_out + 1,)
+            np.testing.assert_array_equal(
+                row_ptr.numpy(), np.concatenate([[0], np.cumsum(row_len)]))
+            assert int(row_ptr[0]) == 0 and int(row_ptr[-1]) == e_pad
+            continue
+        if field == "row_order":
+            assert order.dtype == torch.int64 and order.shape == (n_out,)
+            want, want_long = walk_order(row_len.numpy())
+            np.testing.assert_array_equal(order.numpy(), want)
+            assert n_long == want_long
+            continue
         csr_len = np.diff(other.indptr)
         np.testing.assert_array_equal(row_len[:-1].numpy(), csr_len[:-1])
         assert int(row_len[-1]) == csr_len[-1] + e_pad - g.nnz
         assert (row_len == 0).any()          # the empty rows
-    assert (adj.t_row_len is adj.row_len) == (kind == "symmetric")
+    alias = {"row_len": adj.t_row_len is adj.row_len,
+             "row_ptr": adj.t_row_ptr is adj.row_ptr,
+             "row_order": adj.t_row_order is adj.row_order}[field]
+    assert alias == (kind == "symmetric")
+
+
+def test_walk_order_hands_out_the_longest_rows_first():
+    """The kernel's walk order is a permutation of the rows by edge count,
+    longest first and ties in row order, and counts the rows of more than
+    ``LONG_ROW`` edges, which lead it."""
+    row_len = np.array([3, LONG_ROW + 1, 0, 3, 5 * LONG_ROW, LONG_ROW, 7])
+    order, n_long = walk_order(row_len)
+    np.testing.assert_array_equal(order, [4, 1, 5, 6, 0, 3, 2])
+    assert n_long == 2
+    assert (row_len[order[:n_long]] > LONG_ROW).all()
+    assert (row_len[order[n_long:]] <= LONG_ROW).all()
+    order, n_long = walk_order(np.zeros(0, np.int64))
+    assert order.shape == (0,) and n_long == 0
+
+
+@pytest.mark.parametrize("kind", ["symmetric", "rectangular"])
+def test_cpu_product_takes_the_plain_path(kind):
+    """On the CPU the COO product, forward and dX, is the plain version
+    (gather, weight, ``segment_sum``): it counts under ``spmm_coo`` and
+    leaves every ``spmm_coo_k<k>`` count, the card kernel's, at 0."""
+    g, _ = _graph(kind)
+    adj = coo_adjacency(g, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(adj.n_cols, 5, generator=gen, requires_grad=True)
+    counters.clear()
+    out = spmm(adj, x)
+    (dx,) = torch.autograd.grad(out, x, torch.ones_like(out))
+    assert counters["spmm_coo"] == 2
+    assert not [name for name in counters if name.startswith("spmm_coo_k")]
+    assert torch.equal(out, _segment_spmm_plain(adj.cols, adj.vals,
+                                                x.detach(), adj.row_len))
+    assert torch.equal(dx, _segment_spmm_plain(
+        adj.t_cols, adj.t_vals, torch.ones_like(out), adj.t_row_len))
+
+
+def test_kernel_wrapper_refuses_what_the_kernel_cannot_take():
+    """The card kernel's wrapper checks its operands before it builds or
+    launches anything: float32 x and vals, int64 cols, offsets and walk
+    order, one entry an edge and one a row, all on x's device."""
+    g, _ = _graph("symmetric")
+    adj = coo_adjacency(g, device="cpu")
+    x = torch.randn(adj.n_cols, 4)
+    args = dict(cols=adj.cols, vals=adj.vals, x=x, row_ptr=adj.row_ptr,
+                order=adj.row_order, long_rows=adj.long_rows)
+    for change, error in (
+            (dict(x=x.double()), TypeError),
+            (dict(vals=adj.vals.double()), TypeError),
+            (dict(cols=adj.cols.int()), TypeError),
+            (dict(row_ptr=adj.row_ptr.int()), TypeError),
+            (dict(order=adj.row_order.int()), TypeError),
+            (dict(vals=adj.vals[:-1]), ValueError),
+            (dict(order=adj.row_order[:-1]), ValueError),
+            (dict(long_rows=adj.n_rows + 1), ValueError),
+            (dict(x=x[0]), ValueError),
+            (dict(cols=adj.cols.to("meta")), ValueError)):
+        with pytest.raises(error):
+            _coo_spmm_kernel(**{**args, **change})
 
 
 def test_segment_lengths_refuses_unsorted_rows():

@@ -1443,9 +1443,11 @@ def test_captured_hgnn_fit_over_split_windows_is_bit_equal(cuda):
 
 # ---- the COO product (GCN v1-v5 past 8,192 rows) -------------------------
 #
-# A gather, then each row's run of edges summed in edge order by the row
-# edge counts made with the layout (``ops/spmm.py::segment_sum``): no
-# atomics, so calls and captured fits are bit-equal on the card too.
+# Each row's run of edges summed in edge order, with no atomics, so calls
+# and captured fits are bit-equal on the card too: on the card by the COO
+# kernel (``ops/csrc/coo_spmm.cu``), which takes the same float32 steps in
+# the same order as the plain version (a gather, then ``segment_sum`` by
+# the row edge counts made with the layout) and so equals it bit for bit.
 
 
 def _coo_graph(seed=6, n=9000):
@@ -1575,3 +1577,155 @@ def test_eager_fit_times_its_steps_on_the_card(cuda):
                           mode="no_val")
     step = res.timers("step").d
     assert step.cuda and step.count == 4
+
+
+def _coo_kernel_graph(kind):
+    """A graph for the COO kernel's checks, symmetric or rectangular: a
+    row of over a thousand edges (long: a thread block walks it), empty
+    rows (and, rectangular, empty
+    columns, so its transpose has empty rows too) and a stored edge count
+    that is no multiple of EDGE_PAD, so the padded tail exists."""
+    rng = np.random.default_rng(31 if kind == "symmetric" else 32)
+    if kind == "symmetric":
+        n = 3000
+        src = np.concatenate([np.full(3000, 5), rng.integers(0, n - 200,
+                                                             20_000)])
+        dst = rng.integers(0, n - 200, src.shape[0])
+        return coo_to_csr(src, dst, rng.random(src.shape[0]),
+                          (n, n)).symmetrize()
+    n, m = 2500, 1800
+    src = np.concatenate([np.zeros(3000, np.int64),
+                          rng.integers(1, n - 100, 15_000)])
+    dst = rng.integers(0, m - 50, src.shape[0])
+    return coo_to_csr(src, dst, rng.random(src.shape[0]), (n, m))
+
+
+def _coo_kernel_adj(kind, device):
+    from gcn_tpu_torch.ops.adjacency import coo_adjacency
+
+    adj = coo_adjacency(_coo_kernel_graph(kind), device=device)
+    assert adj.symmetric == (kind == "symmetric")
+    assert adj.rows.numel() > adj.nnz                 # the padded tail
+    assert int(adj.row_len.max()) > 1000 and adj.long_rows > 0
+    assert (adj.row_len == 0).any() and (adj.t_row_len == 0).any()
+    return adj
+
+
+def _coo_plain_f32(adj, x, t=False):
+    """The plain version on the card: gather, weight, segment sum."""
+    from gcn_tpu_torch.ops.spmm import _segment_spmm_plain
+
+    if t:
+        return _segment_spmm_plain(adj.t_cols, adj.t_vals, x, adj.t_row_len)
+    return _segment_spmm_plain(adj.cols, adj.vals, x, adj.row_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 32, 40, 64, 128, 200])
+@pytest.mark.parametrize("kind", ["symmetric", "rectangular"])
+def test_coo_kernel_bit_equal_to_plain_on_card(cuda, kind, k):
+    """The COO kernel's forward and dX (over the transpose arrays) equal
+    the plain version run on the card bit for bit, and each call counts
+    once under ``spmm_coo_k<k>``."""
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    adj = _coo_kernel_adj(kind, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(adj.n_cols, k, device=cuda, generator=gen,
+                    requires_grad=True)
+    ct = torch.randn(adj.n_rows, k, device=cuda, generator=gen)
+    name = f"spmm_coo_k{k}"
+    before = counters[name]
+    out = spmm(adj, x)
+    assert counters[name] == before + 1
+    (dx,) = torch.autograd.grad(out, x, ct)
+    assert counters[name] == before + 2
+    assert torch.equal(out, _coo_plain_f32(adj, x.detach()))
+    assert torch.equal(dx, _coo_plain_f32(adj, ct, t=True))
+    _close(out.detach().double(), _coo_plain(adj, x.detach()))
+
+
+def _x_view(base, view, k):
+    """x of ``k`` columns as a view of ``base``'s storage: rows that are
+    not contiguous, or rows that start 4 bytes past a 16-byte boundary."""
+    if view == "transposed":
+        return base[:k].t()
+    if view == "strided":
+        return base[:, :2 * k:2]
+    return base[:, 1:k + 1]                           # "unaligned"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["transposed", "strided", "unaligned"])
+@pytest.mark.parametrize("k", [7, 40])
+def test_coo_kernel_takes_any_x_view_on_card(cuda, view, k):
+    """An x given as a view the kernel's 16-byte loads cannot read in place
+    gives the plain version's result on that view, bit for bit."""
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    adj = _coo_kernel_adj("rectangular", cuda)
+    n = adj.n_cols
+    base = torch.randn(*((k, n) if view == "transposed" else (n, 2 * k + 1)),
+                       device=cuda)
+    x = _x_view(base, view, k)
+    assert x.shape == (n, k)
+    assert not x.is_contiguous() or x.data_ptr() % 16
+    assert torch.equal(spmm(adj, x), _coo_plain_f32(adj, x))
+    assert torch.equal(spmm(adj, x), spmm(adj, x.contiguous()))
+
+
+@pytest.mark.cuda
+def test_coo_kernel_refuses_other_dtypes_on_card(cuda):
+    """The kernel takes float32 x and vals; anything else raises on the
+    card, with no fallback to the torch ops."""
+    import dataclasses as dc
+
+    from gcn_tpu_torch.ops.spmm import spmm
+
+    adj = _coo_kernel_adj("symmetric", cuda)
+    with pytest.raises(TypeError, match="float32"):
+        spmm(adj, torch.randn(adj.n_cols, 8, device=cuda,
+                              dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32"):
+        spmm(dc.replace(adj, vals=adj.vals.half()),
+             torch.randn(adj.n_cols, 8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_captured_v4_fit_kernel_bit_equal_to_plain_on_card(cuda,
+                                                           monkeypatch):
+    """A captured GCN v4 fit over ``CooAdj`` leaves the same losses, output
+    and parameters bit for bit with the COO kernel and with the plain
+    version patched in its place; with the kernel, every COO product
+    counts under some ``spmm_coo_k<k>``, and with the plain one none."""
+    from gcn_tpu_torch.models import GCN
+    from gcn_tpu_torch.ops import spmm as spmm_mod
+
+    g = _coo_graph()
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((g.shape[0], 48)).astype(np.float32)
+    labels = rng.integers(0, 6, g.shape[0])
+
+    def fit():
+        counters.clear()
+        m = GCN(48, 32, 6, seed=2, device=cuda)
+        m.fit(feats, g, labels, np.arange(3000), train_iters=15)
+        torch.cuda.synchronize()
+        by_k = sum(n for name, n in counters.items()
+                   if name.startswith("spmm_coo_k"))
+        return m, counters["spmm_coo"], by_k
+
+    kernel, calls, by_k = fit()
+    assert calls > 0 and by_k == calls
+    monkeypatch.setattr(
+        spmm_mod, "_coo_spmm_kernel",
+        lambda cols, vals, x, row_ptr, order, long_rows:
+        spmm_mod._segment_spmm_plain(cols, vals, x, torch.diff(row_ptr)))
+    plain, plain_calls, plain_by_k = fit()
+    assert plain_calls == calls and plain_by_k == 0
+    assert [h["loss_train"] for h in kernel.history] == \
+        [h["loss_train"] for h in plain.history]
+    assert torch.equal(kernel.output, plain.output)
+    for name, layer in kernel.params.items():
+        for key, t in layer.items():
+            assert torch.equal(t, plain.params[name][key]), (name, key)
