@@ -2,6 +2,7 @@
 """Chip smoke test of gcn_tpu_torch, the PyTorch / CUDA port, on one GPU.
 
     python3 chip_smoke.py          # from the repository root; needs a GPU
+    python3 chip_smoke.py --gat    # the [gat] phase alone (phase 17)
 
 Drives the port's paths on the card — v6 GCN training through
 ``gcn_tpu_torch.models.GCN`` over the ELL layout (kernel K1) at
@@ -229,12 +230,29 @@ Phases (each failure exits non-zero):
      the fit (the default captured loop: kernel records under
      torch.profiler) and 4 a profile iteration, the profile's rows are
      gcn_tpu's for the hoisted v6 orders, each finite and positive; then
-     --load-path P reaches the same test accuracy.
+     --load-path P reaches the same test accuracy;
+ 17. [gat], after [ladder]: GAT's attention kernels
+     (``ops/csrc/gat_attn.cu``) on synth-arxiv with self loops as
+     ``GAT.build_layout`` lays it out (every row's run holds real edges
+     only), at the paper's (H, F) = (4, 256) and (6, 40): the forward and
+     the cotangents of wh, el and er against the plain version in
+     float64, head by head, at rtol 1e-4 and atol 1e-5 of the largest
+     element; two calls bit-equal, forward and backward; the device ms of
+     the forward and of the forward with backward beside the plain
+     version's (float32) and the bound of ``benchmark/gat_work.py``'s
+     count (bytes and flops at 3.35 TB/s and 67 TFLOP/s), and each
+     kernel's ms in one forward with backward (torch.profiler, read by
+     ``benchmark/trace.py``); then a 10-iteration ``GAT.fit`` at heads (4,
+     4, 6) and widths (256, 256, 40), eager, its counters zeroed just
+     before it (9 attention calls an iteration, every one through the
+     kernels), and the same fit captured, bit-equal to it.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
 kernel records, and ``captured_host_calls``), the COO kernel at [ladder]'s
-widths (its launches by width in the eager v4 fit), K1 on the serving layouts
+widths (its launches by width in the eager v4 fit), GAT's attention at
+each (H, F) (its launches at that shape in [gat]'s eager fit, each
+kernel's ms in ``kernels_ms``), K1 on the serving layouts
 (with their plans), and K1 at HGNN's, the
 frequency split's and the sharded parts' shapes (every flavor's new
 layouts too, and the model axis's hidden shard), each
@@ -2546,6 +2564,194 @@ def ladder_phase(dev, data, p0):
     }
 
 
+GAT_SHAPES = ((4, 256), (6, 40))   # (heads, width): layers 1-2, layer 3
+GAT_RTOL, GAT_ATOL_OF_MAX = 1e-4, 1e-5
+GAT_ITERS = 10
+GAT = "--gat"
+
+
+def gat_kernel_calls(counts):
+    """({(H, F): launches of GAT's attention kernels}, their share of the
+    attention's calls) in ``counts`` (``utils.timers.counters``)."""
+    by_shape = {}
+    for name, n in counts.items():
+        if name.startswith("gat_attn_h"):
+            h, f = name[len("gat_attn_h"):].split("_f")
+            by_shape[(int(h), int(f))] = n
+    total = counts["gat_attn"]
+    return by_shape, (sum(by_shape.values()) / total if total else None)
+
+
+def gat_phase(dev, data):
+    """[gat]: GAT's attention kernels (``ops/csrc/gat_attn.cu``) at the
+    main path's shapes: synth-arxiv with self loops, laid out by
+    ``GAT.build_layout``, at (H, F) = (4, 256) and (6, 40). For each shape
+    on seeded wh, el, er and dout: the forward and the three cotangents
+    against the plain version (``_gat_attention_plain``) in float64, head by
+    head, at rtol 1e-4 and atol 1e-5 of the largest element (float32 sums
+    over rows of hundreds of edges taken in another order, an exp an
+    edge); two calls bit-equal, forward and backward; the kernels' device
+    ms forward and forward with backward beside the plain version's in
+    float32 and the bound of ``benchmark/gat_work.py``'s bytes and flops;
+    and one forward with backward under torch.profiler, read by the
+    benchmark's ``trace.read``, for each kernel's own ms. Then a
+    ``GAT.fit`` at the paper's widths, eager, its counters zeroed just
+    before it: 9 attention calls an iteration, every one through the
+    kernels; and the same fit captured, bit-equal to it. Returns the
+    kernels line's rows, one a shape."""
+    import torch
+
+    from benchmark import gat_work, trace
+    from gcn_tpu_torch.models.gat import GAT as GatModel
+    from gcn_tpu_torch.ops import gat_attn
+    from gcn_tpu_torch.utils.chain_timing import device_ms
+    from gcn_tpu_torch.utils.timers import counters
+
+    t0 = time.time()
+    nfeat, ncls = data.num_features, data.num_classes
+    lay = GatModel(nfeat, ncls, device=dev).build_layout(data.adj)
+    torch.cuda.synchronize()
+    row_len = lay.row_len.cpu()
+    print(f"[gat] synth-arxiv with self loops: n={lay.n} edges={lay.nnz}, "
+          f"{lay.long_rows} rows of more than 256 edges, longest "
+          f"{int(row_len.max())}, {lay.t_long_rows} such transpose rows "
+          f"({time.time() - t0:.1f}s)", flush=True)
+    if int(row_len.sum()) != lay.nnz or int(lay.row_ptr[-1]) != lay.nnz:
+        fail("the attention's rows do not cover its edges alone")
+    rows, launches = [], {}
+    for heads, width in GAT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        wh, el, er, dout = (torch.randn(shape, generator=gen, device=dev)
+                            for shape in ((lay.n, heads, width),
+                                          (lay.n, heads), (lay.n, heads),
+                                          (lay.n, heads, width)))
+        leaves = [t.requires_grad_(True) for t in (wh, el, er)]
+
+        def kernel():
+            return gat_attn.gat_attention(lay, wh, el, er)
+
+        def plain():
+            return gat_attn._gat_attention_plain(lay, wh, el, er, 0.2)
+
+        def both(fn):
+            out = fn()
+            return [out.detach(),
+                    *torch.autograd.grad(out, leaves, dout)]
+
+        got = both(kernel)
+        want = [torch.empty(t.shape, dtype=torch.float64, device=dev)
+                for t in got]
+        for h in range(heads):
+            w64 = [t.detach()[:, h:h + 1].double().requires_grad_(True)
+                   for t in leaves]
+            out = gat_attn._gat_attention_plain(lay, *w64, 0.2)
+            grads = torch.autograd.grad(out, w64,
+                                        dout[:, h:h + 1].double())
+            for dst, src in zip(want, [out.detach(), *grads]):
+                dst[:, h:h + 1] = src
+            del out, grads, w64
+        errs = [compare(f"attention ({heads}, {width}) {name}", a, b,
+                        rtol=GAT_RTOL,
+                        atol=GAT_ATOL_OF_MAX * b.abs().max().item())
+                for name, a, b in zip(("out", "dwh", "d_el", "d_er"), got,
+                                      want)]
+        del want
+        torch.cuda.empty_cache()
+        check_repeat(f"attention ({heads}, {width}) forward", kernel)
+        check_repeat(f"attention ({heads}, {width}) backward",
+                     lambda: torch.cat([t.flatten() for t in both(kernel)]))
+
+        def forward_only(fn):
+            with torch.no_grad():
+                fn()
+
+        ms = {"kernel_fwd": device_ms(lambda: forward_only(kernel), 20),
+              "kernel_fwd_bwd": device_ms(lambda: both(kernel), 20)}
+        for name, call in (("plain_fwd", lambda: forward_only(plain)),
+                           ("plain_fwd_bwd", lambda: both(plain))):
+            try:
+                ms[name] = device_ms(call, 5)
+            except torch.cuda.OutOfMemoryError:
+                ms[name] = None
+            torch.cuda.empty_cache()
+        work = {call: gat_work.attention_work(lay.n, lay.nnz, heads, width,
+                                              call)
+                for call in ("forward", "backward")}
+        b_fwd, by = least_ms(*work["forward"])
+        b_bwd, by_bwd = least_ms(*work["backward"])
+        prof = trace.profile(lambda: both(kernel))
+        by_kernel = {name: sec * 1e3 for name, sec in prof["device_ops"]}
+        print(f"  ({heads}, {width}): kernels fwd {ms['kernel_fwd']:.4f} ms, "
+              f"fwd + bwd {ms['kernel_fwd_bwd']:.4f} ms | plain (f32) "
+              f"{ms['plain_fwd']} / {ms['plain_fwd_bwd']} ms | bound "
+              f"{b_fwd:.5f} / {b_fwd + b_bwd:.5f} ms (by {by}, {by_bwd}) | "
+              f"{100 * b_fwd / ms['kernel_fwd']:.1f}% / "
+              f"{100 * (b_fwd + b_bwd) / ms['kernel_fwd_bwd']:.1f}% of it",
+              flush=True)
+        print(f"  ({heads}, {width}) one forward with backward by device "
+              f"op (ms): {json.dumps(by_kernel)}", flush=True)
+        rows.append({
+            "name": "gat_attn",
+            "route": "cuda",
+            "source": "gcn_tpu_torch/ops/csrc/gat_attn.cu",
+            "replaces": "none: gcn_tpu has no GAT",
+            "use": f"synth-arxiv with self loops ({lay.nnz} edges), "
+                   f"(H, F) = ({heads}, {width}): forward; forward + "
+                   f"backward",
+            "launches": None,
+            "max_abs_err": max(errs),
+            "ms": [ms["kernel_fwd"], ms["kernel_fwd_bwd"]],
+            "plain_ms": [ms["plain_fwd"], ms["plain_fwd_bwd"]],
+            "bound_ms": [b_fwd, b_fwd + b_bwd],
+            "bound_by": by,
+            "kernels_ms": by_kernel,
+        })
+        del wh, el, er, dout, leaves, got
+        torch.cuda.empty_cache()
+
+    print(f"[gat] GAT.fit at heads (4, 4, 6), widths (256, 256, {ncls}), "
+          f"{GAT_ITERS} iterations, mode val: eager, then captured",
+          flush=True)
+    fits = {}
+    for jit_loop in (False, True):
+        counters.clear()
+        t1 = time.time()
+        m = GatModel(nfeat, ncls, seed=SEED, device=dev)
+        m.fit(data.features, data.adj, data.labels, data.idx_train,
+              data.idx_val, train_iters=GAT_ITERS, mode="val",
+              jit_loop=jit_loop)
+        torch.cuda.synchronize()
+        fits[jit_loop] = m
+        if not jit_loop:
+            launches, share = gat_kernel_calls(counters)
+            calls = counters["gat_attn"]
+            print(f"  eager: {calls} attention calls ({calls / GAT_ITERS} "
+                  f"an iteration), launches by (H, F) {launches}, share "
+                  f"{share} ({time.time() - t1:.1f}s)", flush=True)
+            if calls != 9 * GAT_ITERS or share != 1.0:
+                fail(f"GAT.fit made {calls} attention calls (expected "
+                     f"{9 * GAT_ITERS}), {share} of them on the kernels")
+    eager, cap = fits[False], fits[True]
+    losses = [h["loss_train"] for h in eager.history]
+    if not losses[-1] < losses[0] or not torch.isfinite(eager.output).all():
+        fail(f"GAT.fit: the loss did not fall or the output is not finite "
+             f"({losses[0]} -> {losses[-1]})")
+    same = ([h["loss_train"] for h in cap.history] == losses
+            and torch.equal(cap.output, eager.output)
+            and all(torch.equal(cap.params[k][j], t)
+                    for k, layer in eager.params.items()
+                    for j, t in layer.items()))
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; captured bit-equal "
+          f"to eager -> {'ok' if same else 'MISMATCH'}; median step "
+          f"{cap.timers('step').d.median_ms:.3f} ms captured, "
+          f"{eager.timers('step').d.median_ms:.3f} ms eager", flush=True)
+    if not same:
+        fail("the captured GAT fit differs from the eager one")
+    for row, shape in zip(rows, GAT_SHAPES):
+        row["launches"] = launches.get(shape, 0)
+    return rows
+
+
 def index_add_fold(out_virt, adj):
     """The hub fold as the port had it before its fixed order: an
     ``index_add_`` over ``virt_map`` (atomic adds on the card), the
@@ -2790,6 +2996,29 @@ def wide_kpad_phase(dev, g, data):
     return rows
 
 
+def gat_main():
+    """``--gat``: the card's line, the [gat] phase alone (its kernels built
+    at first use), its rows of the kernels line, the card's line again and
+    the result."""
+    import torch
+
+    from gcn_tpu_torch.data import get_dataset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    t0 = time.time()
+    rows = gat_phase(torch.device("cuda"),
+                     get_dataset("synth-arxiv", seed=SEED))
+    print(f"[done] {time.time() - t0:.1f}s", flush=True)
+    print(json.dumps({"kernels": rows}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main():
     import torch
 
@@ -2802,6 +3031,8 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
         print(json.dumps(train_gcn_flags_phase()), flush=True)
         return 0
+    if sys.argv[1:] == [GAT]:
+        return gat_main()
     import numpy as np
 
     from gcn_tpu_torch import bench
@@ -3259,6 +3490,7 @@ def main():
 
     wide_rows = wide_kpad_phase(dev, g, data)
     coo_row = ladder_phase(dev, data, p0)
+    gat_rows = gat_phase(dev, data)
 
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)
@@ -3314,7 +3546,7 @@ def main():
         "heavy_windows": padj.heavy.numel(),
         "captured_launches": captured["panel"][0],
         "captured_host_calls": captured["panel"][1],
-    }, coo_row] + split_rows + wide_rows + hgnn_rows + freq_rows
+    }, coo_row] + gat_rows + split_rows + wide_rows + hgnn_rows + freq_rows
         + dist_rows + order_rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
+from gcn_tpu_torch.models.gat import GAT
 from gcn_tpu_torch.models.gcn import GCN
 from gcn_tpu_torch.models.hgnn import HGNN
 
-__all__ = ["GCN", "HGNN"]
+__all__ = ["GAT", "GCN", "HGNN"]

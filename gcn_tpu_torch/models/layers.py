@@ -3,7 +3,8 @@
 Numerics of the pygcn reference's ``GraphConvolution`` (gcn1.py:14-62), as
 in ``gcn_tpu.models.layers``: weights (in, out), W and b drawn from
 U(-1/sqrt(out), 1/sqrt(out)), output ``A (X W) + b``; the order ``(A X) W``
-is the reference's ``GraphConvolution2`` (gcn3.py:87-92).
+is the reference's ``GraphConvolution2`` (gcn3.py:87-92). ``gat_conv`` is
+a GAT layer's attention heads (``models/gat.py``), which gcn_tpu lacks.
 """
 
 from __future__ import annotations
@@ -76,3 +77,28 @@ def dropout(generator: torch.Generator, x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def gat_conv(params: Dict[str, torch.Tensor], att: Dict[str, torch.Tensor],
+             layout, x: torch.Tensor, heads: int,
+             negative_slope: float = 0.2) -> torch.Tensor:
+    """The heads of one GAT layer (arXiv:1710.10903, eqs. 1-4), before its
+    bias: returns (n, heads, width), head h's ``sum_j alpha_ij (x W)[j, h]``.
+
+    ``params["w"]`` is (in, heads * width), the heads' W side by side;
+    ``att["w"]`` is (width, 2 * heads), column h head h's ``a_src`` and
+    column heads + h its ``a_dst``, and ``att["b"]`` their two logit biases
+    a head (``attn_head``'s two 1x1 convolutions carry them, inside the
+    LeakyReLU). Both scores of every head come from one product, ``x (W
+    a)``, which equals ``(x W) a``; the aggregation is
+    ``ops.gat_attn.gat_attention`` over ``layout`` (a ``GatLayout``)."""
+    from gcn_tpu_torch.ops import gat_attn
+
+    w = params["w"]
+    width = w.shape[1] // heads
+    wh = torch.matmul(x, w).view(x.shape[0], heads, width)
+    wa = torch.einsum("ihf,fsh->ish", w.view(-1, heads, width),
+                      att["w"].view(width, 2, heads)).reshape(-1, 2 * heads)
+    scores = torch.matmul(x, wa) + att["b"]
+    return gat_attn.gat_attention(layout, wh, scores[:, :heads],
+                                  scores[:, heads:], negative_slope)

@@ -34,7 +34,8 @@ GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared"]
 # library name -> sources (relative to the package) of each CUDA library
 CUDA_LIBRARIES = {"gcnellspmm": ["ops/csrc/ell_spmm.cu"],
                   "gcnpanelspmm": ["ops/csrc/panel_spmm.cu"],
-                  "gcncoospmm": ["ops/csrc/coo_spmm.cu"]}
+                  "gcncoospmm": ["ops/csrc/coo_spmm.cu"],
+                  "gcngatattn": ["ops/csrc/gat_attn.cu"]}
 
 
 class BuildError(RuntimeError):

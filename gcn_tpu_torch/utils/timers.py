@@ -20,7 +20,9 @@ The fit's phases are spans (``span``): ``fit``, the root of each fit
 (entry to the first iteration), ``fit.loop`` (the ``fit_scan`` region, its
 wait for the device included) and ``fit.finish`` (the host reads and the
 final evaluation); inside ``fit.loop``, ``CapturedLoop.run`` opens
-``loop.warmup``, ``loop.capture`` (on the card) and ``loop.replay``. A
+``loop.warmup``, ``loop.capture`` (on the card) and ``loop.replay``;
+``GAT.fit`` opens ``gat.layout`` (its layout and upload) before its
+``fit``. A
 span is a shared no-op unless a ``recording()`` is open, which collects
 the finished spans, or ``torch.profiler`` is tracing, where each span is
 also a ``record_function`` range on the profiler's clock, beside the
@@ -31,7 +33,10 @@ No span is opened inside a captured iteration.
 ``ops/ell_spmm.py``) and ``spmm_ell_k<k>`` (K1 at width k), ``spmm_panel``
 (K2, ``ops/panel_spmm.py``), ``spmm_coo`` (each product of the COO SpMM,
 ``ops/spmm.py``, forward or backward, on either device) and
-``spmm_coo_k<k>`` (a launch of its CUDA kernel at width k). A call inside
+``spmm_coo_k<k>`` (a launch of its CUDA kernel at width k), ``gat_attn``
+(each call of GAT's attention, ``ops/gat_attn.py``, forward or backward,
+on either device) and ``gat_attn_h<H>_f<F>`` (such a call through its
+CUDA kernels, by heads and width). A call inside
 a CUDA graph capture counts once and the graph's replays count nothing, so
 a captured fit's calls an iteration are the ``counts`` of its
 ``loop.capture`` span.

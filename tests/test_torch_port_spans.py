@@ -8,7 +8,10 @@ flavor; ``loop.capture`` exists on the card only) or a single
 ``loop.replay`` (eager flavor). Under ``torch.profiler`` every span is a
 host event of its name. The COO product counts each of its products in
 ``counters["spmm_coo"]``, so a hoisted two-layer fit with validation makes
-three calls an iteration, in its warm-up as in the rest.
+three calls an iteration, in its warm-up as in the rest. A GAT fit opens
+``gat.layout`` before its ``fit``, as a root span of its own, and counts
+nine attention calls an iteration in ``counters["gat_attn"]``: three
+training forwards, three backwards and three evaluation forwards.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.graph import hypergraph as hg
 from gcn_tpu_torch.graph.normalize import gcn_normalize
+from gcn_tpu_torch.models.gat import GAT
 from gcn_tpu_torch.models.gcn_core import gcn_forward, init_gcn_params
 from gcn_tpu_torch.models.hgnn import HGNN
 from gcn_tpu_torch.ops.adjacency import device_adjacency
@@ -170,6 +174,40 @@ def test_calls_an_iteration_are_the_same_in_warmup_and_replay(flavor):
     warm, rest = tree["loop.warmup"], tree["loop.replay"]
     assert warm.counts["spmm_coo"] / WARMUP == 3
     assert rest.counts["spmm_coo"] / rest.attrs["iters"] == 3
+
+
+def _gat():
+    data = get_dataset("synth-tiny", seed=1)
+
+    def run():
+        GAT(data.num_features, data.num_classes, heads=(2, 2, 3),
+            hidden=(8, 8), device="cpu").fit(
+                data.features, data.adj, data.labels, data.idx_train,
+                data.idx_val, train_iters=ITERS, mode="val")
+    return run
+
+
+def test_gat_fit_opens_its_layout_span_before_the_fit():
+    with recording() as spans:
+        _gat()()
+    tree = _tree(spans)
+    layout, fit = tree["gat.layout"], tree["fit"]
+    assert layout.parent is None and layout.fit is None
+    assert layout.start_ns <= layout.end_ns <= fit.start_ns
+    assert {s.fit for s in spans if s is not layout} == {fit.id}
+
+
+def test_gat_attention_counts_nine_calls_an_iteration():
+    with recording() as spans:
+        _gat()()
+    tree = _tree(spans)
+    warm, rest = tree["loop.warmup"], tree["loop.replay"]
+    assert warm.counts["gat_attn"] / WARMUP == 9
+    assert rest.counts["gat_attn"] / rest.attrs["iters"] == 9
+    # the final evaluation's forward
+    assert tree["fit.finish"].counts["gat_attn"] == 3
+    # no call went through the kernels on the CPU
+    assert not any(k.startswith("gat_attn_h") for k in tree["fit"].counts)
 
 
 @pytest.fixture
