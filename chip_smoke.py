@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs a GPU
     python3 chip_smoke.py --gat    # the [gat] phase alone (phase 17)
+    python3 chip_smoke.py --hgnn   # the HGNN phase alone (phase 13)
 
 Drives the port's paths on the card — v6 GCN training through
 ``gcn_tpu_torch.models.GCN`` over the ELL layout (kernel K1) at
@@ -14,7 +15,8 @@ through ``gcn_tpu_torch.parallel.make_sharded_gcn_train_step`` (four
 shards in this process, K1 on every shard's parts; then 4 bands x 2 model
 slots, K1 on each slot's hidden shard), and HGNN training
 through ``gcn_tpu_torch.models.HGNN`` at ModelNet40's shape on both forms
-of G (K1) — and holds every kernel against its plain PyTorch version.
+of G (the COO kernel by default, K1 under ``adj_kind="ell"``) — and holds
+every kernel against its plain PyTorch version.
 Phases (each failure exits non-zero):
 
   1. the card's name and power limit (nvidia-smi);
@@ -191,21 +193,27 @@ Phases (each failure exits non-zero):
      8, 16, 32, 8 cards a node, bf16 and fp8 wires), one JSON row per d;
  13. HGNN at ModelNet40's shape (n=12,311, 2048 features, 40 classes; a
      KNN-10 hypergraph on the first 64 feature columns, the host seconds
-     printed): K1 against its plain version in float64 on G (k_pad 128, P
-     = 1) at k=128, 40 and 1 and on each factor of G forward and through
-     its transpose arrays at k=128, 40, 32 and 1, the factored product
-     against the chain at rtol 1e-4; K1's time beside ``torch.sparse.mm``
-     and the bound in every use the fits launch, at its width (the hoist,
-     each epoch, the row sum); 5 epochs card against CPU for both forms
-     (losses at rtol 1e-4); the published recipe (n_hid 128, dropout 0.5,
-     lr 1e-3, weight decay 5e-4, milestones [100], gamma 0.9) for 200
-     epochs on each form, eager, where the loss falls, the output is
-     finite, test accuracy is above 0.5, and K1's launches equal the count
-     reckoned from the code (``hgnn_launches``); [captured fit] the same
-     200 epochs in the default captured flavor against them (losses rtol
-     1e-4, logits rtol and atol 1e-4, best val accuracy within one row,
-     the generator's state equal) with both flavors' median epoch; and 10
-     + 10 epochs resumed across a milestone at 5 against 20 at rtol 1e-6;
+     printed; ``--hgnn`` runs it alone), G and its factors lowered as
+     ``HGNN`` lowers them by default (``adj_kind="auto"``: ``CooAdj``, or
+     it fails) and under ``adj_kind="ell"`` (K1's layout; G at k_pad 128,
+     P = 1): the COO kernel and K1 against their plain versions in float64
+     on G at k=128, 40, 32 and 1 and on each factor forward and through its
+     transpose arrays at the same widths, the COO kernel on G bit-equal to
+     its plain version, the factored product against the chain at rtol
+     1e-4; 5 epochs card against CPU for both forms (losses at rtol 1e-4);
+     the published recipe (n_hid 128, dropout 0.5, lr 1e-3, weight decay
+     5e-4, milestones [100], gamma 0.9) for 200 epochs on each form under
+     each kind, eager, where the loss falls, the output is finite, test
+     accuracy is above 0.5, and the G-products on the kind's layout (COO
+     products, every one through the kernel, or K1 launches) equal the
+     count reckoned from the code (``hgnn_launches``), none on the other;
+     [captured fit] the same 200 epochs under "auto" in the default
+     captured flavor, bit-equal to them, with both flavors' median epoch;
+     10 + 10 epochs resumed across a milestone at 5 against 20 at rtol
+     1e-6; and both kernels' time beside their plain versions',
+     ``torch.sparse.mm``'s and the bound in every use the fits make (the
+     hoist, each epoch, the row sum), with one row of the kernels line
+     each for the COO kernel and K1 on G at k=40;
  14. [orders]: synth-arxiv after ``gcn_normalize``, each of the 9 reorder
      methods (its host seconds and route, native or numpy), then the degree
      sort and ``ell_adjacency(k_pad=32)`` on the card (slots, padding
@@ -253,8 +261,8 @@ kernel records, and ``captured_host_calls``), the COO kernel at [ladder]'s
 widths (its launches by width in the eager v4 fit), GAT's attention at
 each (H, F) (its launches at that shape in [gat]'s eager fit, each
 kernel's ms in ``kernels_ms``), K1 on the serving layouts
-(with their plans), and K1 at HGNN's, the
-frequency split's and the sharded parts' shapes (every flavor's new
+(with their plans), the COO kernel and K1 on HGNN's G at k=40, and K1 at
+the frequency split's and the sharded parts' shapes (every flavor's new
 layouts too, and the model axis's hidden shard), each
 with the launches at its width of the run that uses it, and K1 after each
 reorder method (``use`` names it; ``launches``: the [orders] phase's own
@@ -648,11 +656,12 @@ def read_launches():
 
 
 def hgnn_launches(adj, in_ch, epochs):
-    """K1 launches of an HGNN fit with validation, reckoned from the code:
-    the hoist (one SpMM a column chunk of ``k_pad``, 32 for a TwoHopAdj,
-    which has none), the row sum, per epoch the forward, dX and the
-    validation forward, and the final evaluation; a TwoHopAdj SpMM is two
-    launches."""
+    """G-products of an HGNN fit with validation, reckoned from the code
+    (K1 launches over an ELL layout, COO products over a ``CooAdj``): the
+    hoist (one SpMM a column chunk of ``k_pad``, 32 for a ``CooAdj`` or a
+    TwoHopAdj, which have none), the row sum, per epoch the forward, dX
+    and the validation forward, and the final evaluation; a TwoHopAdj SpMM
+    is two."""
     per_spmm = 2 if hasattr(adj, "a1") else 1
     chunks = -(-in_ch // getattr(adj, "k_pad", 32))
     return per_spmm * (chunks + 1 + 3 * epochs + 1)
@@ -676,13 +685,61 @@ def check_close_losses(name, got, want, rtol):
         fail(f"{name}: {got.tolist()} vs {want.tolist()}")
 
 
+def coo_direction(adj, t=False):
+    """(cols, vals, row_ptr, order, long_rows, row_len, n_out, n_in) of
+    one direction of a ``CooAdj``: the forward arrays, or (``t``) the
+    transpose arrays."""
+    if t:
+        return (adj.t_cols, adj.t_vals, adj.t_row_ptr, adj.t_row_order,
+                adj.t_long_rows, adj.t_row_len, adj.n_cols, adj.n_rows)
+    return (adj.cols, adj.vals, adj.row_ptr, adj.row_order, adj.long_rows,
+            adj.row_len, adj.n_rows, adj.n_cols)
+
+
+def coo_use(label, adj, t, x, csr, launches, path, reps=30):
+    """Time the COO kernel on one direction of ``adj`` at x's width (CUDA
+    events, the chain behind a spin kernel), its plain version and
+    ``torch.sparse.mm`` on ``csr``; print them beside the bound; return a
+    ``kernels`` row whose ``launches`` are the run's kernel calls at that
+    width (``launches``: ``coo_kernel_calls(...)[0]`` of the run on
+    ``path``; ``max_abs_err`` is filled in by the caller)."""
+    import torch
+
+    from gcn_tpu_torch.ops.spmm import _coo_spmm_kernel, _segment_spmm_plain
+
+    cols, vals, row_ptr, order, n_long, row_len, n_out, n_in = \
+        coo_direction(adj, t)
+    k = x.shape[1]
+    ms = chain_ms(lambda v: _coo_spmm_kernel(cols, vals, v, row_ptr, order,
+                                             n_long), x, reps, n_in)
+    plain_ms = chain_ms(lambda v: _segment_spmm_plain(cols, vals, v,
+                                                      row_len), x, 3, n_in)
+    lib_ms = chain_ms(lambda v: torch.sparse.mm(csr, v), x, reps, n_in)
+    print(f"[COO timing] {label}: COO kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | torch.sparse.mm (CSR) {lib_ms:.4f} ms",
+          flush=True)
+    bound_ms, bound_by = bound(*spmm_work(adj.nnz, 0, n_in, n_out, k))
+    print(f"  the COO kernel at {100 * bound_ms / ms:.1f}% of the bound (by "
+          f"{bound_by})", flush=True)
+    return {"name": f"coo_spmm: {label}", "route": "cuda",
+            "source": "gcn_tpu_torch/ops/csrc/coo_spmm.cu",
+            "replaces": COO_REPLACES, "launches": launches.get(k, 0),
+            "launches_by_k": launches, "path": path, "max_abs_err": None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def hgnn_phases(dev):
     """HGNN at ModelNet40's shape (n = 12,311 objects, 2048 features, 40
     classes; a KNN-10 hypergraph on the first 64 feature columns), both
-    forms of G: K1 against its plain version, K1's time, 5 epochs card
-    against CPU, the published recipe for 200 epochs with K1's launches
-    counted, and a resume across a milestone. Returns the ``kernels``
-    rows of K1 at HGNN's shapes."""
+    forms of G, each lowered as ``HGNN`` lowers it by default
+    (``adj_kind="auto"``: the COO layout, past the area rule) and on K1's
+    layout (``adj_kind="ell"``): both kernels against float64, 5 epochs
+    card against CPU, the published recipe for 200 epochs under each kind
+    with its G-products counted, the captured fit against the eager one,
+    a resume across a milestone, and both kernels' time in each use the
+    fits make of them. Returns the ``kernels`` rows of the COO kernel and
+    of K1 on G at k = 40."""
     import tempfile
 
     import numpy as np
@@ -695,8 +752,11 @@ def hgnn_phases(dev):
                                                 generate_G_from_H)
     from gcn_tpu_torch.models import HGNN
     from gcn_tpu_torch.ops import ell_spmm as es
-    from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
+    from gcn_tpu_torch.ops.adjacency import CooAdj
+    from gcn_tpu_torch.ops.spmm import (TwoHopAdj, _coo_spmm_kernel,
+                                        _segment_spmm_plain, spmm)
     from gcn_tpu_torch.train.capture import WARMUP
+    from gcn_tpu_torch.utils.timers import counters
 
     n, f, classes = HGNN_N, HGNN_F, 40
     t0 = time.time()
@@ -719,67 +779,103 @@ def hgnn_phases(dev):
           f"nnz={a2.nnz}; host seconds: features {t_feat:.1f}, KNN H "
           f"(n x n distances) {t_h:.1f}, G {t_g:.1f}, factors {t_fac:.1f}",
           flush=True)
-    lowerer = HGNN(f, classes, device=dev, **HGNN_RECIPE)
-    t0 = time.time()
-    gadj = lowerer._lower(g)
-    t_tile_g = time.time() - t0
-    t0 = time.time()
-    fadj = TwoHopAdj(lowerer._lower(a1), lowerer._lower(a2))
-    t_tile_f = time.time() - t0
-    for label, a, secs in (("G", gadj, t_tile_g), ("A1", fadj.a1, t_tile_f),
-                           ("A2", fadj.a2, None)):
-        blocks = a.win_off.diff()
-        print(f"  {label}: {type(a).__name__} k_pad={a.k_pad} P={a.p} "
-              f"R={a.r} symmetric={a.symmetric} blocks={a.num_blocks} "
-              f"slots={a.cols.numel()} pad={a.pad_fraction:.3f} "
-              f"spans={len(a.spans)} chunks={len(a.chunks)} "
-              f"n_hub={a.n_hub} max blocks/window={int(blocks.max())}"
-              + (f" (tiled in {secs:.1f}s)" if secs is not None else ""),
-              flush=True)
-        plan_line(label, a)
-        if not a.symmetric:
-            plan_line(f"{label} transpose arrays", a, True)
-    if gadj.k_pad != 128 or gadj.p != 1:
-        fail("HGNN's G is not on the k_pad 128 (P = 1) layout")
+    if a1.shape != (n, n) or a2.shape != (n, n):
+        fail("the KNN hypergraph has not one hyperedge a vertex")
+    layouts = {}
+    for kind in ("auto", "ell"):
+        lowerer = HGNN(f, classes, device=dev, adj_kind=kind, **HGNN_RECIPE)
+        t0 = time.time()
+        gadj = lowerer._lower(g)
+        t_g = time.time() - t0
+        t0 = time.time()
+        fadj = TwoHopAdj(lowerer._lower(a1), lowerer._lower(a2))
+        t_f = time.time() - t0
+        layouts[kind] = gadj, fadj
+        print(f"[hgnn lowering] adj_kind={kind!r}: G in {t_g:.2f}s, the "
+              f"factors in {t_f:.2f}s", flush=True)
+        for label, a in (("G", gadj), ("A1", fadj.a1), ("A2", fadj.a2)):
+            if kind == "auto":
+                if not isinstance(a, CooAdj):
+                    fail(f"'auto' lowered HGNN's {label} to "
+                         f"{type(a).__name__}, not CooAdj")
+                row_len = a.row_len.cpu()
+                print(f"  {label}: CooAdj nnz={a.nnz} padded edges="
+                      f"{a.rows.numel()} symmetric={a.symmetric} row "
+                      f"entries median {int(row_len.median())} max "
+                      f"{int(row_len.max())}, {a.long_rows} long rows",
+                      flush=True)
+                continue
+            blocks = a.win_off.diff()
+            print(f"  {label}: {type(a).__name__} k_pad={a.k_pad} P={a.p} "
+                  f"R={a.r} symmetric={a.symmetric} blocks={a.num_blocks} "
+                  f"slots={a.cols.numel()} pad={a.pad_fraction:.3f} "
+                  f"spans={len(a.spans)} chunks={len(a.chunks)} "
+                  f"n_hub={a.n_hub} max blocks/window={int(blocks.max())}",
+                  flush=True)
+            plan_line(label, a)
+            if not a.symmetric:
+                plan_line(f"{label} transpose arrays", a, True)
+    if layouts["ell"][0].k_pad != 128 or layouts["ell"][0].p != 1:
+        fail("HGNN's G under adj_kind='ell' is not on the k_pad 128 "
+             "(P = 1) layout")
 
-    def exact(a, x, t=False):
+    def exact(kind, a, x, t=False):
+        if kind == "auto":
+            return coo_index_add(a, x.double(), t)
         cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
         return es._ell_spmm_plain(x.double(), cols, vals.double(), win,
                                   win_off, n_out)
 
-    def k1(a, x, t=False):
+    def kernel(kind, a, x, t=False):
+        if kind == "auto":
+            cols, vals, row_ptr, order, n_long, _, _, _ = coo_direction(a, t)
+            return _coo_spmm_kernel(cols, vals, x, row_ptr, order, n_long)
         cols, vals, win, win_off, n_out, _ = k1_arrays(a, t)
         return es.ell_spmm(x, cols, vals, win, win_off, n_out,
                            plan=k1_plan(a, t))
 
-    if a1.shape != (n, n) or a2.shape != (n, n):
-        fail("the KNN hypergraph has not one hyperedge a vertex")
-    print("[HGNN K1 vs plain] float64 plain version, f32 tolerance; G is "
-          "symmetric (its transpose arrays are its own)", flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = {k: torch.randn(n, k, device=dev, generator=gen)
           for k in (128, 40, 32, 1)}
-    # every direction and width the fits launch K1 at (the hoist: G at 128,
-    # each factor at 32; each epoch at 40, the factors' dX through their
-    # transpose arrays; the row sum at 1), and the factors at 128
-    operands = {"G": (gadj, False, g), "A1": (fadj.a1, False, a1),
-                "A1 transpose arrays": (fadj.a1, True, a1.transpose()),
-                "A2": (fadj.a2, False, a2),
-                "A2 transpose arrays": (fadj.a2, True, a2.transpose())}
-    checks = [("G", k) for k in (128, 40, 1)] + [
-        (name, k) for name in list(operands)[1:] for k in (128, 40, 32, 1)]
+    # every direction and width the fits run a G-product at (the hoist: G
+    # at k_pad 128 over ELL, in chunks of 32 over COO, each factor at 32;
+    # each epoch at 40, the factors' dX through their transpose arrays;
+    # the row sum at 1), and the factors at 128
+    names = ("G", "A1", "A1 transpose arrays", "A2", "A2 transpose arrays")
+    csrs = dict(zip(names, (g, a1, a1.transpose(), a2, a2.transpose())))
+
+    def operand(kind, name):
+        gadj, fadj = layouts[kind]
+        a = {"G": gadj, "A1": fadj.a1, "A2": fadj.a2}[name.split()[0]]
+        return a, name.endswith("transpose arrays")
+
+    checks = [("G", k) for k in (128, 40, 32, 1)] + [
+        (name, k) for name in names[1:] for k in (128, 40, 32, 1)]
     errs = {}
-    for name, k in checks:
-        a, t, _ = operands[name]
-        errs[name, k] = compare(f"{name} k={k}", k1(a, xs[k], t),
-                                exact(a, xs[k], t))
-    for k in (128, 40):
-        compare(f"factored G (TwoHopAdj) vs the chain, k={k}",
-                spmm(fadj, xs[k]), spmm(gadj, xs[k]), rtol=1e-4)
+    for kind, label in (("auto", "COO kernel"), ("ell", "K1")):
+        print(f"[HGNN {label} vs plain] float64 plain version, f32 "
+              f"tolerance; G is symmetric (its transpose arrays are its "
+              f"own)", flush=True)
+        for name, k in checks:
+            a, t = operand(kind, name)
+            errs[kind, name, k] = compare(
+                f"{label} {name} k={k}", kernel(kind, a, xs[k], t),
+                exact(kind, a, xs[k], t))
+        gadj, fadj = layouts[kind]
+        for k in (128, 40):
+            compare(f"{label}: factored G (TwoHopAdj) vs the chain, k={k}",
+                    spmm(fadj, xs[k]), spmm(gadj, xs[k]), rtol=1e-4)
+    gcoo = layouts["auto"][0]
+    same = torch.equal(kernel("auto", gcoo, xs[40]), _segment_spmm_plain(
+        gcoo.cols, gcoo.vals, xs[40], gcoo.row_len))
+    print(f"  the COO kernel on G k=40 bit-equal to its plain version: "
+          f"{same}", flush=True)
+    if not same:
+        fail("the COO kernel on HGNN's G differs from its plain version")
     torch.cuda.synchronize()
 
-    print("[HGNN fit 5 epochs, dropout 0] card vs cpu, both forms of G",
-          flush=True)
+    print("[HGNN fit 5 epochs, dropout 0] card vs cpu, both forms of G, "
+          "adj_kind='auto'", flush=True)
     p0 = params_to_numpy(HGNN(f, classes, seed=SEED,
                               device="cpu").init_params())
     forms = (("dense G", g), ("factored G", (a1, a2)))
@@ -799,70 +895,89 @@ def hgnn_phases(dev):
                            1e-4)
 
     runs, eager_models = {}, {}
-    for form, G in forms:
-        print(f"[HGNN main path] {form}, {HGNN_EPOCHS} epochs, the published "
-              f"recipe {HGNN_RECIPE}, seed {SEED}, the eager flavor",
-              flush=True)
-        model = HGNN(f, classes, seed=SEED, device=dev, **HGNN_RECIPE)
-        t0 = time.time()
-        reset_launches()
-        # the eager flavor: the host counter counts every K1 launch
-        model.fit(fts, G, labels, idx_train, idx_val=idx_test,
-                  num_epochs=HGNN_EPOCHS, jit_loop=False)
-        torch.cuda.synchronize()
-        launches = read_launches()
-        fit_s = time.time() - t0
-        losses = losses_of(model)
-        acc = model.test(idx_test)
-        out = model.output
-        expected = hgnn_launches(model.g_adj, f, HGNN_EPOCHS)
-        print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; fit "
-              f"{fit_s:.2f}s (lowering G included); hoist "
-              f"{model.timers('hoist_gx').d.median_ms:.3f} ms; median epoch "
-              f"{model.median_epoch_ms:.3f} ms; best val accuracy "
-              f"{model.best_acc:.4f}; test accuracy {acc:.4f}", flush=True)
-        print(f"  K1 launches: {launches[0]} by width {launches[1]} "
-              f"(expected {expected} from the code)", flush=True)
-        if launches[0] != expected:
-            fail(f"HGNN {form}: K1 launched {launches[0]} times, expected "
-                 f"{expected}")
-        if not losses[-1] < losses[0]:
-            fail(f"HGNN {form}: loss did not fall")
-        if tuple(out.shape) != (n, classes) or not torch.isfinite(out).all():
-            fail(f"HGNN {form}: output shape {tuple(out.shape)} or values "
-                 f"not finite")
-        if not acc > 0.5:
-            fail(f"HGNN {form}: test accuracy {acc:.4f} is not above 0.5")
-        runs[form] = launches
-        eager_models[form] = model
+    for kind in ("auto", "ell"):
+        for form, G in forms:
+            print(f"[HGNN main path] {form}, adj_kind={kind!r}, "
+                  f"{HGNN_EPOCHS} epochs, the published recipe "
+                  f"{HGNN_RECIPE}, seed {SEED}, the eager flavor",
+                  flush=True)
+            model = HGNN(f, classes, seed=SEED, device=dev, adj_kind=kind,
+                         **HGNN_RECIPE)
+            t0 = time.time()
+            reset_launches()
+            # the eager flavor: the host counters count every G-product
+            model.fit(fts, G, labels, idx_train, idx_val=idx_test,
+                      num_epochs=HGNN_EPOCHS, jit_loop=False)
+            torch.cuda.synchronize()
+            k1 = read_launches()
+            coo, share = coo_kernel_calls(counters)
+            fit_s = time.time() - t0
+            losses = losses_of(model)
+            acc = model.test(idx_test)
+            out = model.output
+            expected = hgnn_launches(model.g_adj, f, HGNN_EPOCHS)
+            print(f"  losses first {losses[0]:.6f} last {losses[-1]:.6f}; "
+                  f"fit {fit_s:.2f}s (lowering G included); hoist "
+                  f"{model.timers('hoist_gx').d.median_ms:.3f} ms; median "
+                  f"epoch {model.median_epoch_ms:.3f} ms; best val "
+                  f"accuracy {model.best_acc:.4f}; test accuracy "
+                  f"{acc:.4f}", flush=True)
+            print(f"  K1 launches: {k1[0]} by width {k1[1]}; COO products "
+                  f"{counters['spmm_coo']}, the kernel's calls by width "
+                  f"{coo} (share {share}); expected {expected} from the "
+                  f"code", flush=True)
+            if kind == "auto":
+                got, other = counters["spmm_coo"], k1[0]
+                launches = coo
+                if share != 1.0:
+                    fail(f"HGNN {form}: {share} of the COO products took "
+                         f"the kernel")
+            else:
+                got, other = k1[0], counters["spmm_coo"]
+                launches = k1[1]
+            if got != expected or other:
+                fail(f"HGNN {form}, adj_kind={kind!r}: {got} G-products "
+                     f"on its layout (expected {expected}), {other} on the "
+                     f"other")
+            if not losses[-1] < losses[0]:
+                fail(f"HGNN {form}: loss did not fall")
+            if tuple(out.shape) != (n, classes) or \
+                    not torch.isfinite(out).all():
+                fail(f"HGNN {form}: output shape {tuple(out.shape)} or "
+                     f"values not finite")
+            if not acc > 0.5:
+                fail(f"HGNN {form}: test accuracy {acc:.4f} is not above "
+                     f"0.5")
+            runs[kind, form] = launches
+            eager_models[kind, form] = model
 
-    print(f"[captured fit] HGNN, both forms of G, {HGNN_EPOCHS} epochs: the "
-          f"default flavor (jit_loop=True) against the eager fits above "
-          f"(losses rtol 1e-4, logits rtol and atol 1e-4; best val "
-          f"accuracy within one row)", flush=True)
+    print(f"[captured fit] HGNN, both forms of G, adj_kind='auto', "
+          f"{HGNN_EPOCHS} epochs: the default flavor (jit_loop=True) "
+          f"against the eager fits above, bit for bit", flush=True)
     for form, G in forms:
-        eager = eager_models[form]
+        eager = eager_models["auto", form]
         cap = HGNN(f, classes, seed=SEED, device=dev, **HGNN_RECIPE)
         t0 = time.time()
         reset_launches()
         cap.fit(fts, G, labels, idx_train, idx_val=idx_test,
                 num_epochs=HGNN_EPOCHS)
         torch.cuda.synchronize()
-        host = read_launches()[0]
+        host = counters["spmm_coo"]
         host_expected = hgnn_launches(cap.g_adj, f, WARMUP + 1)
         print(f"  {form}: fit {time.time() - t0:.2f}s (lowering G "
               f"included), fit_scan {cap.timers('fit_scan').d.total_ms:.3f}"
               f" ms; best val accuracy {cap.best_acc:.4f} (eager "
-              f"{eager.best_acc:.4f}); K1 {host} host calls (expected "
-              f"{host_expected}: the hoist, the row sum, {WARMUP} warm-up "
-              f"epochs, the captured one, the evaluation)", flush=True)
+              f"{eager.best_acc:.4f}); {host} COO products on the host "
+              f"(expected {host_expected}: the hoist, the row sum, "
+              f"{WARMUP} warm-up epochs, the captured one, the "
+              f"evaluation); K1 {read_launches()[0]}", flush=True)
         captured_report(f"HGNN {form} epoch", (losses_of(cap), cap.output),
                         (losses_of(eager), eager.output),
                         (cap.median_epoch_ms, eager.median_epoch_ms),
-                        rtol=1e-4, atol=1e-4)
-        if host != host_expected:
-            fail(f"captured HGNN {form}: {host} K1 host calls")
-        if abs(cap.best_acc - eager.best_acc) > 1.0 / len(idx_test) + 1e-7:
+                        rtol=1e-4, atol=1e-4, exact=True)
+        if host != host_expected or read_launches()[0]:
+            fail(f"captured HGNN {form}: {host} COO products on the host")
+        if cap.best_acc != eager.best_acc:
             fail(f"captured HGNN {form}: best val accuracy "
                  f"{cap.best_acc} against {eager.best_acc}")
         if not torch.equal(cap._rng_state, eager._rng_state):
@@ -886,9 +1001,10 @@ def hgnn_phases(dev):
     compare("HGNN resumed output vs uninterrupted", second.output,
             ref.output)
 
-    # K1's time in the uses the fits launch, at the widths they launch
-    uses = (("G", 128, "dense G", "the hoist"),
+    # both kernels' time in the uses the fits make of them, at their widths
+    uses = (("G", 128, "dense G", "K1's hoist"),
             ("G", 40, "dense G", "each epoch: forward, dX, validation"),
+            ("G", 32, "dense G", "the COO layout's hoist"),
             ("G", 1, "dense G", "the row sum"),
             ("A2", 32, "factored G", "the hoist"),
             ("A1", 32, "factored G", "the hoist"),
@@ -900,12 +1016,21 @@ def hgnn_phases(dev):
             ("A1", 1, "factored G", "the row sum"))
     rows = []
     for name, k, form, use in uses:
-        a, t, csr_g = operands[name]
-        row = k1_use(f"HGNN {name} k={k} ({use})", a, t, xs[k],
-                     csr_g.to_torch(dev), runs[form],
-                     f"HGNN {form}, {HGNN_EPOCHS} epochs", K1_REPLACES)
-        row["max_abs_err"] = errs[name, k]
-        rows.append(row)
+        label = f"HGNN {name} k={k} ({use})"
+        csr = csrs[name].to_torch(dev)
+        a, t = operand("auto", name)
+        coo_row = coo_use(label, a, t, xs[k], csr, runs["auto", form],
+                          f"HGNN {form}, adj_kind='auto', {HGNN_EPOCHS} "
+                          f"epochs")
+        a, t = operand("ell", name)
+        k1_row = k1_use(label, a, t, xs[k], csr,
+                        (None, runs["ell", form]),
+                        f"HGNN {form}, adj_kind='ell', {HGNN_EPOCHS} "
+                        f"epochs", K1_REPLACES)
+        if (name, k) == ("G", 40):
+            for kind, row in (("auto", coo_row), ("ell", k1_row)):
+                row["max_abs_err"] = errs[kind, name, k]
+                rows.append(row)
     return rows
 
 
@@ -2375,6 +2500,8 @@ def coo_index_add(adj, x, t=False):
 
 
 COO_WIDTHS = (32, 40, 64, 128)
+COO_REPLACES = ("none: gcn_tpu's COO product is XLA's gather and sorted "
+                "segment_sum (gcn_tpu/ops/spmm.py)")
 
 
 def coo_kernel_calls(counts):
@@ -2549,8 +2676,7 @@ def ladder_phase(dev, data, p0):
         "name": "coo_spmm",
         "route": "cuda",
         "source": "gcn_tpu_torch/ops/csrc/coo_spmm.cu",
-        "replaces": "none: gcn_tpu's COO product is XLA's gather and "
-                    "sorted segment_sum (gcn_tpu/ops/spmm.py)",
+        "replaces": COO_REPLACES,
         "use": f"synth-arxiv own order, k = {list(COO_WIDTHS)}",
         "launches": v4_launches,
         "bit_equal_to_plain": True,
@@ -2568,6 +2694,7 @@ GAT_SHAPES = ((4, 256), (6, 40))   # (heads, width): layers 1-2, layer 3
 GAT_RTOL, GAT_ATOL_OF_MAX = 1e-4, 1e-5
 GAT_ITERS = 10
 GAT = "--gat"
+HGNN_ONLY = "--hgnn"
 
 
 def gat_kernel_calls(counts):
@@ -2996,20 +3123,23 @@ def wide_kpad_phase(dev, g, data):
     return rows
 
 
-def gat_main():
-    """``--gat``: the card's line, the [gat] phase alone (its kernels built
-    at first use), its rows of the kernels line, the card's line again and
-    the result."""
-    import torch
-
+def gat_rows(dev):
     from gcn_tpu_torch.data import get_dataset
+
+    return gat_phase(dev, get_dataset("synth-arxiv", seed=SEED))
+
+
+def phase_main(phase):
+    """``--gat`` or ``--hgnn``: the card's line, that phase alone (its
+    kernels built at first use), its rows of the kernels line, the card's
+    line again and the result."""
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(smi_line(), flush=True)
     t0 = time.time()
-    rows = gat_phase(torch.device("cuda"),
-                     get_dataset("synth-arxiv", seed=SEED))
+    rows = phase(torch.device("cuda"))
     print(f"[done] {time.time() - t0:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi_line())
@@ -3032,7 +3162,9 @@ def main():
         print(json.dumps(train_gcn_flags_phase()), flush=True)
         return 0
     if sys.argv[1:] == [GAT]:
-        return gat_main()
+        return phase_main(gat_rows)
+    if sys.argv[1:] == [HGNN_ONLY]:
+        return phase_main(hgnn_phases)
     import numpy as np
 
     from gcn_tpu_torch import bench

@@ -12,10 +12,12 @@ both flavors run one ``step`` and give bit-equal results on the CPU.
 Weights and biases start at U(-1/sqrt(out), 1/sqrt(out))
 (pyhgnn/models/layers.py).
 
-Every G-product goes through ``ops.spmm``: kernel K1 when G (or a factor)
-is lowered to the ELL layout, which ``HGNN._lower`` does past an
-8192x8192-equivalent area. Everything runs on ``device``: the card unless
-the caller passes ``device="cpu"``.
+Every G-product goes through ``ops.spmm``. ``HGNN._lower`` keeps G (or a
+factor) dense up to an 8192x8192-equivalent area and, under the default
+``adj_kind="auto"``, lowers it past that area to the row-walk COO layout,
+as GCN does: the COO kernel (``ops/csrc/coo_spmm.cu``). ``adj_kind="ell"``
+lowers it to K1's ELL layout instead. Everything runs on ``device``: the
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -119,16 +121,15 @@ class HGNN:
             sorted(self.milestones), epoch)
 
     def _lower(self, g_csr: CSRGraph):
-        """G (or a factor) onto the device: the ELL layout beyond an
-        8192x8192-equivalent dense area (an area rule, so a tall, narrow
-        factor stays dense), at k_pad 128 when n_hid > 64, else 32."""
-        kind = self.adj_kind
-        if kind == "auto" and g_csr.shape[0] * g_csr.shape[1] > 8192 ** 2:
-            kind = "ell"
-        if kind == "ell":
+        """G (or a factor) onto the device as ``adj_kind`` says. "auto" is
+        ``device_adjacency``'s area rule: dense up to an
+        8192x8192-equivalent area (so a tall, narrow factor stays dense),
+        the row-walk COO layout past it. "ell" is K1's layout, at k_pad 128
+        when n_hid > 64, else 32."""
+        if self.adj_kind == "ell":
             return device_adjacency(g_csr, "ell", device=self.device,
                                     k_pad=128 if self.n_hid > 64 else 32)
-        return device_adjacency(g_csr, kind, device=self.device)
+        return device_adjacency(g_csr, self.adj_kind, device=self.device)
 
     def _adjacency(self, G):
         if isinstance(G, TwoHopAdj):

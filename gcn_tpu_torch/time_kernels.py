@@ -30,7 +30,8 @@ ROOT, then the card's name and power limit.
 times K1 alone at k=128 on HGNN's G at ModelNet40's shape, built as
 ``chip_smoke.py`` builds it (n=12,311, 2048 features, seed 15; a KNN-10
 hypergraph on the first 64 feature columns), in three layouts: as
-``HGNN._lower`` tiles it (rows in the hypergraph's order, k_pad 128), and two
+``HGNN._lower`` tiles it under ``adj_kind="ell"`` (rows in the
+hypergraph's order, k_pad 128), and two
 the model does not build: G degree-sorted (padding cut, hub rows split, as
 GCN v6's graph is) at k_pad 128 and at k_pad 32, beside ``torch.sparse.mm``
 on the same CSR, each under the layout's walk split plan and with no
@@ -156,7 +157,7 @@ def hgnn_layouts():
     print(f"HGNN G, n={n} nnz={g.nnz}, k=128: torch.sparse.mm (CSR) "
           f"{chain_ms(lambda v: torch.sparse.mm(csr, v), x, REPS):.4f} "
           f"ms", flush=True)
-    for label, graph, k_pad in (("as HGNN lowers it", g, 128),
+    for label, graph, k_pad in (("as HGNN lowers it for 'ell'", g, 128),
                                 ("degree-sorted", gs, 128),
                                 ("degree-sorted, k_pad 32", gs, 32)):
         a = ell_adjacency(graph, k_pad=k_pad, device=dev)

@@ -1560,6 +1560,75 @@ def test_captured_v4_fit_matches_eager_on_card(cuda):
     assert torch.equal(captured._rng_state, eager._rng_state)
 
 
+def _wide_hypergraph(seed=12, n=8300):
+    """G of a hypergraph of more than 8,192 vertices, so that ``HGNN``
+    resolves ``adj_kind="auto"`` to ``CooAdj``: one hyperedge a vertex,
+    the vertex and 10 others at random, so G's rows hold ~100 entries,
+    as ModelNet40's KNN-10 G does."""
+    import scipy.sparse as sp
+
+    from gcn_tpu_torch.graph.hypergraph import generate_G_from_H
+
+    rng = np.random.default_rng(seed)
+    members = np.concatenate([np.arange(n)[:, None],
+                              rng.integers(0, n, (n, 10))], axis=1)
+    h = sp.csr_matrix((np.ones(members.size),
+                       (members.ravel(), np.arange(n).repeat(11))), (n, n))
+    return generate_G_from_H(h)
+
+
+@pytest.mark.cuda
+def test_auto_hgnn_fit_runs_the_coo_kernel_on_card(cuda):
+    """An "auto" HGNN over a G of more than 8,192 rows trains over
+    ``CooAdj``: K1 never launches, the COO kernel takes every G-product
+    (past the hoist, 3 an epoch at k = n_class and the final evaluation),
+    a captured fit equals the eager one bit for bit, and G's product and
+    its dX are within the f32 tolerance of float64."""
+    from gcn_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from gcn_tpu_torch.models import HGNN
+    from gcn_tpu_torch.ops.adjacency import CooAdj
+    from gcn_tpu_torch.ops.spmm import spmm
+    from gcn_tpu_torch.train.capture import WARMUP
+
+    g = _wide_hypergraph()
+    n, f, c, epochs = g.shape[0], 64, 5, 12
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    labels = rng.integers(0, c, n)
+    names = ("spmm_ell", "spmm_coo", f"spmm_coo_k{c}")
+    runs, p0 = {}, None
+    for jit_loop in (False, True):
+        before = {name: counters[name] for name in names}
+        m = HGNN(f, c, n_hid=128, milestones=(5,), device=cuda)
+        p0 = p0 if p0 is not None else params_to_numpy(m.init_params())
+        m.params = params_from_numpy(p0, cuda)
+        m.fit(x, g, labels, np.arange(3000), idx_val=np.arange(3000, 5000),
+              num_epochs=epochs, jit_loop=jit_loop)
+        torch.cuda.synchronize()
+        calls = {name: counters[name] - before[name] for name in names}
+        assert isinstance(m.g_adj, CooAdj)
+        assert calls["spmm_ell"] == 0
+        # host calls: in the captured flavor the epochs before the capture
+        # and the captured one; replays launch without the host
+        host_epochs = epochs if not jit_loop else WARMUP + 1
+        assert calls[f"spmm_coo_k{c}"] == 3 * host_epochs + 1
+        runs[jit_loop] = m
+    eager, captured = runs[False], runs[True]
+    assert [h["loss_train"] for h in captured.history] == \
+        [h["loss_train"] for h in eager.history]
+    assert torch.equal(captured.output, eager.output)
+    assert torch.equal(captured._rng_state, eager._rng_state)
+
+    adj = eager.g_adj
+    want = torch.tensor(g.to_dense(), dtype=torch.float64, device=cuda)
+    xk = torch.randn(n, 40, device=cuda, requires_grad=True)
+    ct = torch.randn(n, 40, device=cuda)
+    out = spmm(adj, xk)
+    dx = torch.autograd.grad(out, xk, ct)[0]
+    _close(out.double(), want @ xk.detach().double())
+    _close(dx.double(), want.T @ ct.double())
+
+
 @pytest.mark.cuda
 def test_eager_fit_times_its_steps_on_the_card(cuda):
     """An eager fit given no timers times each step with CUDA events that

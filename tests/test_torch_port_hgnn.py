@@ -27,7 +27,7 @@ from gcn_tpu_torch import train_hgnn
 from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.graph import hypergraph as hg
 from gcn_tpu_torch.models.hgnn import HGNN, cross_entropy, hgnn_forward
-from gcn_tpu_torch.ops.adjacency import device_adjacency
+from gcn_tpu_torch.ops.adjacency import CooAdj, DenseAdj, device_adjacency
 from gcn_tpu_torch.ops.spmm import TwoHopAdj, spmm
 from gcn_tpu_torch.tile.ell import EllAdj
 from gcn_tpu_torch.utils.timers import counters
@@ -242,7 +242,9 @@ def _fit_pair(kind, epochs=10, milestones=(4,), adj_kind="ell"):
 
 @pytest.mark.parametrize("kind,adj_kind", [("chain", "dense"),
                                            ("chain", "ell"),
-                                           ("factored", "ell")])
+                                           ("factored", "ell"),
+                                           ("chain", "coo"),
+                                           ("factored", "coo")])
 def test_hgnn_fit_matches_gcn_tpu(kind, adj_kind):
     """10 epochs across a milestone at 4 (dropout 0): the final output
     and best_acc equal gcn_tpu's (rtol and atol 1e-4)."""
@@ -265,20 +267,58 @@ def test_hgnn_fit_runs_through_the_ell_path_on_cpu():
 
 
 def test_lower_area_rule():
-    """ELL only beyond an 8192 x 8192-equivalent area; k_pad 128 when
-    n_hid > 64, 32 otherwise."""
+    """"auto" is dense up to an 8192 x 8192-equivalent area and COO past
+    it, for a square operator and for a tall or wide one; "ell" is K1's
+    layout at k_pad 128 when n_hid > 64, 32 otherwise."""
     from gcn_tpu_torch.graph.csr import coo_to_csr
 
     small = coo_to_csr(np.arange(10), np.arange(10), None, (10, 10))
     tall = coo_to_csr(np.arange(10), np.zeros(10, np.int64), None,
                       (100_000, 600))
-    wide = coo_to_csr(np.arange(10), np.arange(10), None, (9000, 9000))
+    square = coo_to_csr(np.arange(10), np.arange(10), None, (9000, 9000))
+    past_tall = coo_to_csr(np.arange(10), np.zeros(10, np.int64), None,
+                           (100_000, 700))
+    past_wide = coo_to_csr(np.zeros(10, np.int64), np.arange(10), None,
+                           (700, 100_000))
     for n_hid, k_pad in ((128, 128), (64, 32)):
         m = HGNN(4, 2, n_hid=n_hid, device="cpu")
-        assert type(m._lower(small)).__name__ == "DenseAdj"
-        assert type(m._lower(tall)).__name__ == "DenseAdj"
-        big = m._lower(wide)
+        assert isinstance(m._lower(small), DenseAdj)
+        assert isinstance(m._lower(tall), DenseAdj)
+        for g in (square, past_tall, past_wide):
+            big = m._lower(g)
+            assert isinstance(big, CooAdj) and big.shape == g.shape
+        ell = HGNN(4, 2, n_hid=n_hid, adj_kind="ell", device="cpu")
+        big = ell._lower(square)
         assert isinstance(big, EllAdj) and big.k_pad == k_pad
+
+
+def test_auto_fit_past_the_area_runs_the_coo_product():
+    """An "auto" fit over a G of more than 8,192 rows lowers G to
+    ``CooAdj`` and runs every G-product as a COO product (its plain
+    version on the CPU), never K1's: the hoist's chunks and the row sum
+    once, then 3 an epoch (forward, dX, the validation forward) and the
+    final evaluation."""
+    import scipy.sparse as sp
+
+    n, f, epochs = 8300, 40, 2
+    rng = np.random.default_rng(3)
+    # one hyperedge a vertex: the vertex and 5 others
+    members = np.concatenate([np.arange(n)[:, None],
+                              rng.integers(0, n, (n, 5))], axis=1)
+    h = sp.csr_matrix((np.ones(members.size),
+                       (members.ravel(), np.arange(n).repeat(6))), (n, n))
+    g = hg.generate_G_from_H(h)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    labels = rng.integers(0, 3, n)
+    before = {c: counters[c] for c in ("spmm_coo", "spmm_ell")}
+    m = HGNN(f, 3, n_hid=16, device="cpu")
+    m.fit(x, g, labels, np.arange(500), idx_val=np.arange(500, 900),
+          num_epochs=epochs)
+    assert isinstance(m.g_adj, CooAdj) and m.g_adj.shape == (n, n)
+    assert counters["spmm_ell"] == before["spmm_ell"]
+    chunks = -(-f // 32)
+    assert counters["spmm_coo"] - before["spmm_coo"] == \
+        chunks + 1 + 3 * epochs + 1
 
 
 def test_lr_schedule_is_multistep():
