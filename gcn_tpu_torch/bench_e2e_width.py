@@ -20,11 +20,12 @@ and 16) on the graph of seed 0, and for each:
     protocol at this width on the first fit's adjacency and layer-1 input
     (``utils/chain_timing.py::train_step_ms``: dropout 0, 20 steps, the
     captured step replayed, or eager steps);
-  * ``busy_share``: the captured step's device-busy share over 10 replays
-    under torch.profiler, its device ms and its K1 ms a step;
   * ``k_pad`` / ``p`` of the ELL layout (v6: 64 at hidden 64, 128 at
     hidden 128), or the adjacency kind (v4: torch's COO product), and the
     K1 launches of a 5-step eager fit (``utils.timers.counters``).
+
+The device's busy share in a whole fit is the benchmark's
+``device_idle_pct`` (``python3 -m benchmark.run --trace 1``).
 
 With ``--device cpu`` the fits run on the CPU and every time is null.
 Prints one JSON line a row, a summary table, and writes the artifact.
@@ -64,38 +65,6 @@ def loop_s(model):
     return model.timers("fit_scan").d.total_ms / 1e3
 
 
-def model_step(model, idx_train):
-    """One training step of the fitted model's own (forward, masked NLL,
-    backward, Adam) as a function, on its adjacency and layer-1 input."""
-    import torch
-
-    from gcn_tpu_torch.models.gcn_core import gcn_forward
-    from gcn_tpu_torch.train.metrics import masked_nll
-    from gcn_tpu_torch.train.optim import adam_l2
-    from gcn_tpu_torch.utils.checkpoint import named_leaves
-
-    params = {name: {k: t.detach().clone().requires_grad_(True)
-                     for k, t in layer.items()}
-              for name, layer in model.params.items()}
-    opt = adam_l2([t for _, t in named_leaves(params)], model.lr,
-                  model.weight_decay)
-    idx = model._remap_idx(idx_train)
-    feats = (model._hoisted_ax if model._hoisted_ax is not None
-             else model.features)
-    orders = model._orders()
-    gen = torch.Generator(device=model.device).manual_seed(0)
-
-    def step():
-        opt.zero_grad(set_to_none=True)
-        lp = gcn_forward(params, feats, model.adj_norm, orders=orders,
-                         dropout_rate=model.dropout, train=True,
-                         generator=gen)
-        masked_nll(lp, model.labels, idx).backward()
-        opt.step()
-
-    return step, gen
-
-
 def k1_launches(data, variant, hidden, device):
     """K1's launches by width in a 5-step eager fit (the host counter sees
     every launch of the eager flavor)."""
@@ -110,7 +79,6 @@ def k1_launches(data, variant, hidden, device):
 def measure(data, variant, hidden, iters, device):
     """One row (the module docstring)."""
     from gcn_tpu_torch.tile.ell import EllAdj
-    from gcn_tpu_torch.train.capture import WARMUP, CapturedLoop
     from gcn_tpu_torch.utils import chain_timing as ct
 
     on_card = device.type == "cuda"
@@ -135,8 +103,7 @@ def measure(data, variant, hidden, iters, device):
         row[f"extra_s{tag}"] = max(loop_s(m) - iters * step_ms / 1e3, 0.0)
         row[f"fit_step_ms{tag}"] = step_ms if on_card else None
     if not on_card:
-        row.update(step_ms_captured=None, step_ms_eager=None,
-                   busy_share=None, busy_ms=None, k1_ms=None)
+        row.update(step_ms_captured=None, step_ms_eager=None)
         return row
     feats = (model._hoisted_ax if model._hoisted_ax is not None
              else model.features)
@@ -145,12 +112,6 @@ def measure(data, variant, hidden, iters, device):
         row[f"step_ms_{flavor}"] = ct.train_step_ms(
             adj, feats, model.labels, idx, hidden, model.nclass,
             jit_loop=jit_loop)
-    step, gen = model_step(model, data.idx_train)
-    loop = CapturedLoop(step, device, gen)
-    loop.run(WARMUP + 1)        # the eager warm-up, then the capture
-    busy = ct.device_busy(loop.graph.replay, 10)
-    row.update(busy_share=busy["busy_share"], busy_ms=busy["busy_ms"],
-               replay_wall_ms=busy["wall_ms"], k1_ms=busy["kernel_ms"])
     return row
 
 
@@ -191,19 +152,17 @@ def main(argv=None):
                     "loop (fit_scan), extra_s = loop - iters x median "
                     "step; step_ms_*: chain_timing.train_step_ms on the "
                     "first fit's arrays (dropout 0, 20 steps, replays or "
-                    "eager steps between CUDA events); busy_share: 10 "
-                    "replays of the fitted model's step under "
-                    "torch.profiler",
+                    "eager steps between CUDA events)",
         "rows": rows}, harness="gcn_tpu_torch/bench_e2e_width.py",
         schema="e2e_width_torch_v1", extra_meta=stamp(device))
     print(f"wrote {args.out}")
     print("\n| variant | hidden | k_pad | acc | step ms captured | eager | "
-          "busy | setup s | extra s |")
-    print("|---|---|---|---|---|---|---|---|---|")
+          "setup s | extra s |")
+    print("|---|---|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['variant']} | {r['hidden']} | {r['k_pad']} | "
               f"{r['acc_test']:.4f} | {r['step_ms_captured']} | "
-              f"{r['step_ms_eager']} | {r['busy_share']} | "
+              f"{r['step_ms_eager']} | "
               f"{r['setup_s']:.2f} | {r['extra_s']:.2f} |")
     if device.type == "cuda":
         print(stamp(device)["card"])

@@ -22,8 +22,9 @@ chained calls behind a spin kernel, ``utils/chain_timing.py``),
 forward with dropout 0.5, cross entropy, backward, Adam with L2 decay;
 layer 1 hoisted as the model runs it) and ``epoch_2spmm_ms`` (layer 1 not
 hoisted: G applied in both layers, pyhgnn's HGNN_conv). The epochs are
-timed in the captured flavor: the epoch captured into a CUDA graph
-(``train/capture.py``) and its replays timed behind a spin kernel.
+trained through the models' one loop (``train.loop.fit_gcn``) in its
+captured flavor: the median of ``--reps`` replays of the captured epoch,
+CUDA events between replays (its "step" timer).
 
 With ``--device cpu`` the forms are built and each timed path runs once on
 the CPU (a rehearsal); every time is null. Prints one JSON line a form
@@ -65,21 +66,23 @@ def build(path, h, lowerer):
     return TwoHopAdj(lowerer._lower(a1), lowerer._lower(a2)), a1.nnz + a2.nnz
 
 
-def epoch_fn(adj, x, labels, idx, n_hid, n_class, hoisted, device):
-    """One training epoch as a function, and its dropout generator."""
+def epoch_ms(adj, x, labels, idx, n_hid, n_class, hoisted, device, reps):
+    """The median ms of a training epoch, trained through the models' one
+    loop (``train.loop.fit_gcn``, captured): ``WARMUP`` epochs, then
+    ``reps`` replays, whose intervals are its "step" timer. None on the
+    CPU, after two epochs run."""
     import torch
 
     from gcn_tpu_torch.models.hgnn import (cross_entropy, hgnn_forward,
                                            init_hgnn_params)
     from gcn_tpu_torch.ops.spmm import hoist_spmm, spmm
+    from gcn_tpu_torch.train.loop import WARMUP, fit_gcn
     from gcn_tpu_torch.train.optim import adam_l2
-    from gcn_tpu_torch.utils.checkpoint import named_leaves
 
+    on_card = device.type == "cuda"
     params = init_hgnn_params(torch.Generator().manual_seed(0), x.shape[1],
                               n_hid, n_class, device=device)
-    leaves = [t.requires_grad_(True) for _, t in named_leaves(params)]
-    lr = torch.tensor(1e-3, device=device) if device.type == "cuda" else 1e-3
-    opt = adam_l2(leaves, lr, 5e-4)
+    lr = torch.tensor(1e-3, device=device) if on_card else 1e-3
     gx = rs = None
     if hoisted:
         with torch.no_grad():
@@ -87,27 +90,14 @@ def epoch_fn(adj, x, labels, idx, n_hid, n_class, hoisted, device):
             rs = spmm(adj, x.new_ones((x.shape[0], 1)))[:, 0]
     gen = torch.Generator(device=device).manual_seed(1)
 
-    def epoch():
-        opt.zero_grad(set_to_none=True)
-        logits = hgnn_forward(params, x, adj, dropout=0.5, train=True,
-                              generator=gen, gx=gx, g_rowsum=rs)
-        cross_entropy(logits, labels, idx).backward()
-        opt.step()
+    def forward(p, train):
+        return hgnn_forward(p, x, adj, dropout=0.5, train=train,
+                            generator=gen, gx=gx, g_rowsum=rs)
 
-    return epoch, gen
-
-
-def captured_ms(epoch, gen, device, reps):
-    """The captured epoch's median replay ms (None on the CPU, after two
-    epochs run)."""
-    from gcn_tpu_torch.train.capture import WARMUP, CapturedLoop
-    from gcn_tpu_torch.utils.chain_timing import device_ms
-
-    loop = CapturedLoop(epoch, device, gen)
-    loop.run(WARMUP + 1 if device.type == "cuda" else 2)
-    if device.type != "cuda":
-        return None
-    return device_ms(loop.graph.replay, reps)
+    res = fit_gcn(params, lambda leaves: adam_l2(leaves, lr, 5e-4), forward,
+                  labels, idx, train_iters=WARMUP + reps if on_card else 2,
+                  mode="no_val", generator=gen, loss=cross_entropy)
+    return res.timers("step").d.median_ms if on_card else None
 
 
 def measure(path, h, fts, labels, idx_train, args, device):
@@ -140,9 +130,8 @@ def measure(path, h, fts, labels, idx_train, args, device):
     row = {"nnz": int(nnz), "build_s": build_s, "spmm_ms": spmm_ms,
            "fwd_ms": fwd_ms}
     for key, hoisted in (("epoch_ms", True), ("epoch_2spmm_ms", False)):
-        epoch, gen = epoch_fn(adj, x, yl, idx, args.nhid, args.classes,
-                              hoisted, device)
-        row[key] = captured_ms(epoch, gen, device, args.reps)
+        row[key] = epoch_ms(adj, x, yl, idx, args.nhid, args.classes,
+                            hoisted, device, args.reps)
     return row
 
 
@@ -185,8 +174,8 @@ def main(argv=None):
                                 "of seed 0"},
            "protocol": "spmm_ms, fwd_ms: median of --reps calls behind a "
                        "spin kernel (CUDA events; spmm chained); epochs: "
-                       "one epoch captured into a CUDA graph, median of "
-                       "--reps replays behind a spin kernel; epoch_ms "
+                       "fit_gcn's captured loop, median of --reps "
+                       "replays, CUDA events between them; epoch_ms "
                        "hoists layer 1, epoch_2spmm_ms applies G in both "
                        "layers",
            "paths": rows}

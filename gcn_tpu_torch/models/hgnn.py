@@ -6,9 +6,11 @@ hypergraph operator G (``graph.hypergraph.generate_G_from_H``, or its two
 factors as a ``TwoHopAdj``), with the reference's recipe
 (pyhgnn/train.py:47-155): Adam (lr 1e-3, classic L2 weight decay 5e-4),
 MultiStepLR (``lr_at``, set before each epoch), cross-entropy, best-val
-snapshot. ``fit`` runs the epochs as replays of one captured CUDA graph
-(``jit_loop=True``, the default, gcn_tpu's ``lax.scan``) or eagerly;
-both flavors run one ``step`` and give bit-equal results on the CPU.
+snapshot. ``fit`` lowers G, uploads the inputs and hoists G X, then trains
+through the models' one loop, ``train.loop.fit_gcn``: its loss is
+``cross_entropy``, its host hook MultiStepLR's rate and its mode
+"val_acc", pyhgnn's best-val rule (the epochs as replays of one captured
+CUDA graph under ``jit_loop=True``, the default, gcn_tpu's ``lax.scan``).
 Weights and biases start at U(-1/sqrt(out), 1/sqrt(out))
 (pyhgnn/models/layers.py).
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import bisect
 import statistics
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,12 +37,13 @@ from gcn_tpu_torch.models.layers import dropout as dropout_fn
 from gcn_tpu_torch.models.layers import init_linear
 from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import TwoHopAdj, hoist_spmm, spmm
-from gcn_tpu_torch.train.capture import CapturedLoop
+from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.metrics import accuracy
 from gcn_tpu_torch.train.optim import adam_l2
-from gcn_tpu_torch.utils.checkpoint import named_leaves, snapshot
+from gcn_tpu_torch.utils.checkpoint import (load_training_state,
+                                           save_training_state)
 from gcn_tpu_torch.utils.device import resolve_device
-from gcn_tpu_torch.utils.timers import Marks, Timers, span
+from gcn_tpu_torch.utils.timers import Timers, span
 
 
 def init_hgnn_params(generator: torch.Generator, in_ch: int, n_hid: int,
@@ -147,171 +151,119 @@ class HGNN:
             num_epochs: int = 600, verbose: bool = False,
             print_freq: int = 100, resume_from: Optional[str] = None,
             jit_loop: bool = True):
-        """Train for ``num_epochs``; with ``idx_val`` keep the parameters
-        of the best validation accuracy (tracked on the device: the host
-        waits once, after the last epoch). ``resume_from`` continues from a
-        ``save_state`` checkpoint of either package. ``jit_loop`` (the
-        default, as in gcn_tpu) runs the epochs as replays of one captured
-        CUDA graph (``train/capture.py``; plain calls of the same epoch on
-        the CPU); ``jit_loop=False`` runs them eagerly. The fit is a ``fit``
-        span (``utils/timers.py``): ``fit.prepare`` (G, the inputs' upload,
-        the G X hoist, the optimizer, the buffers), ``fit.loop`` and
-        ``fit.finish`` (the host reads and the final evaluation)."""
-        with span("fit"):
-            with span("fit.prepare"):
-                adj = self.g_adj = self._adjacency(G)
-                dev = self.device
-                x = torch.as_tensor(np.asarray(features), dtype=torch.float32,
-                                    device=dev)
-                labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64,
-                                         device=dev)
-                idx_train = torch.as_tensor(np.asarray(idx_train),
-                                            dtype=torch.int64, device=dev)
+        """Train for ``num_epochs`` through ``train.loop.fit_gcn``; with
+        ``idx_val`` keep the parameters of the best validation accuracy
+        (its mode "val_acc", tracked on the device). ``resume_from``
+        continues from a ``save_state`` checkpoint of either package.
+        ``jit_loop`` picks ``fit_gcn``'s flavor: the epochs as replays of
+        one captured CUDA graph (the default, as in gcn_tpu), or eager.
+        G's lowering, the inputs' upload, the G X hoist and the resume run
+        under the span ``hgnn.prepare``, before the ``fit`` span."""
+        dev = self.device
+
+        def index(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                   device=dev)
+
+        with span("hgnn.prepare"):
+            adj = self.g_adj = self._adjacency(G)
+            x = torch.as_tensor(np.asarray(features), dtype=torch.float32,
+                                device=dev)
+            labels = index(labels)
+            idx_train = index(idx_train)
+            idx_val = index(idx_val) if idx_val is not None else None
+            # the training-invariant layer-1 aggregation: GX in column
+            # chunks, and the row sums for the bias term (hgnn_forward's
+            # expansion)
+            with self.timers("hoist_gx").d as t:
+                gx = t.fence(hoist_spmm(adj, x))
+            with torch.no_grad():
+                g_rowsum = spmm(adj, x.new_ones((x.shape[0], 1)))[:, 0]
+
+            if self.params is None:
+                self.params = self.init_params()
+            gen = torch.Generator(device=dev).manual_seed(self.seed + 1)
+            self._epochs_done = 0
+            adam_state, schedule_at = None, 0
+            if resume_from is not None:
+                state = load_training_state(resume_from, self.params,
+                                            adam_index=self._ADAM_INDEX,
+                                            schedule=True)
+                self.params, adam_state = state.params, state.adam_state
+                self._epochs_done = state.iteration
+                schedule_at = state.schedule_count
+                state.restore_generator(gen)
                 if idx_val is not None:
-                    idx_val = torch.as_tensor(np.asarray(idx_val),
-                                              dtype=torch.int64, device=dev)
+                    warnings.warn(
+                        "resume_from restores params/optimizer/rng but NOT "
+                        "the best-val snapshot: best tracking restarts here")
 
-                if self.params is None:
-                    self.params = self.init_params()
-                gen = torch.Generator(device=dev).manual_seed(self.seed + 1)
-                self._epochs_done = 0
-                adam_state, schedule_at = None, 0
-                if resume_from is not None:
-                    from gcn_tpu_torch.utils.checkpoint import (
-                        load_training_state)
+        # MultiStepLR's rate, set before each epoch: on a CUDA device a
+        # tensor that the captured epoch reads, filled at a milestone
+        rate = self.lr_at(schedule_at)
+        lr = torch.tensor(rate, device=dev) if dev.type == "cuda" else rate
+        opt = None
 
-                    state = load_training_state(resume_from, self.params,
-                                                adam_index=self._ADAM_INDEX,
-                                                schedule=True)
-                    self.params, adam_state = state.params, state.adam_state
-                    self._epochs_done = state.iteration
-                    schedule_at = state.schedule_count
-                    state.restore_generator(gen)
-                    if idx_val is not None:
-                        import warnings
+        def make_optimizer(leaves):
+            nonlocal opt
+            opt = adam_l2(leaves, lr, self.weight_decay)
+            return opt
 
-                        warnings.warn(
-                            "resume_from restores params/optimizer/rng but "
-                            "NOT the best-val snapshot: best tracking "
-                            "restarts here")
-
-                params = {name: {k: t.detach().clone().requires_grad_(True)
-                                 for k, t in layer.items()}
-                          for name, layer in self.params.items()}
-                leaves = [t for _, t in named_leaves(params)]
-                # MultiStepLR's rate, set before each epoch: on a CUDA device
-                # a tensor that the captured epoch reads, filled at a
-                # milestone
-                rate = self.lr_at(schedule_at)
-                lr = (torch.tensor(rate, device=dev) if dev.type == "cuda"
-                      else rate)
-                opt = adam_l2(leaves, lr, self.weight_decay)
-                if adam_state:
-                    full = opt.state_dict()
-                    full["state"] = adam_state
-                    opt.load_state_dict(full)
-
-                def set_rate(epoch):
-                    nonlocal rate
-                    new = self.lr_at(schedule_at + epoch)
-                    if new == rate:
-                        return
-                    rate = new
-                    for group in opt.param_groups:
-                        if isinstance(group["lr"], torch.Tensor):
-                            group["lr"].fill_(new)
-                        else:
-                            group["lr"] = new
-
-                # the training-invariant layer-1 aggregation: GX in column
-                # chunks, and the row sums for the bias term (hgnn_forward's
-                # expansion)
-                with self.timers("hoist_gx").d as t:
-                    gx = t.fence(hoist_spmm(adj, x))
-                with torch.no_grad():
-                    g_rowsum = spmm(adj, x.new_ones((x.shape[0], 1)))[:, 0]
-
-                def evaluate(p):
-                    with torch.no_grad():
-                        return hgnn_forward(p, None, adj, train=False, gx=gx,
-                                            g_rowsum=g_rowsum)
-
-                best_params = snapshot(params)
-                best = [t for _, t in named_leaves(best_params)]
-                best_acc = torch.tensor(-float("inf"), device=dev)
-                epoch = torch.zeros(1, dtype=torch.int64, device=dev)
-                losses = torch.full((num_epochs,), float("nan"), device=dev)
-                accs = torch.full((num_epochs,), float("nan"), device=dev)
-
-                def step():
-                    """One epoch: the training step, its loss and the
-                    best-val select, recorded at index ``epoch`` of the
-                    device buffers."""
-                    opt.zero_grad(set_to_none=True)
-                    logits = hgnn_forward(params, None, adj,
-                                          dropout=self.dropout, train=True,
-                                          generator=gen, gx=gx,
-                                          g_rowsum=g_rowsum)
-                    loss = cross_entropy(logits, labels, idx_train)
-                    loss.backward()
-                    opt.step()
-                    with torch.no_grad():
-                        losses.index_copy_(0, epoch,
-                                           loss.detach().reshape(1))
-                        if idx_val is not None:
-                            acc = accuracy(
-                                torch.log_softmax(evaluate(params), 1),
-                                labels, idx_val)
-                            take = acc > best_acc
-                            best_acc.copy_(torch.where(take, acc, best_acc))
-                            for b, p in zip(best, leaves):
-                                b.copy_(torch.where(take, p, b))
-                            accs.index_copy_(0, epoch, acc.reshape(1))
-                        epoch.add_(1)
-
-                marks = Marks(dev)
-
-            with span("fit.loop"):
-                if jit_loop:
-                    with self.timers("fit_scan").d:
-                        CapturedLoop(step, dev, gen).run(num_epochs,
-                                                         set_rate, marks)
+        def set_rate(epoch):
+            nonlocal rate
+            new = self.lr_at(schedule_at + epoch)
+            if new == rate:
+                return
+            rate = new
+            for group in opt.param_groups:
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(new)
                 else:
-                    with span("loop.replay", iters=num_epochs):
-                        for e in range(num_epochs):
-                            set_rate(e)
-                            marks.mark()
-                            step()
-                    marks.mark()
+                    group["lr"] = new
 
-            with span("fit.finish"):
-                self.epoch_ms = marks.intervals_ms()
+        last = {}   # the parameters evaluated last, and their logits
 
-                losses = losses.tolist()
-                accs = accs.tolist() if idx_val is not None else []
-                self.history = [
-                    {"epoch": self._epochs_done + e, "loss_train": loss_e,
-                     **({"acc_val": accs[e]} if accs else {})}
-                    for e, loss_e in enumerate(losses)]
-                if verbose:
-                    for e in range(0, num_epochs, print_freq):
-                        msg = f"Epoch {e}/{num_epochs} loss {losses[e]:.4f}"
-                        if accs:
-                            msg += f" val_acc {accs[e]:.4f}"
-                        print(msg)
-                self.opt_state = opt.state_dict()["state"]
-                self._schedule_at = schedule_at + num_epochs
-                self._final_params = snapshot(params)
-                self._rng_state = gen.get_state()
-                self._epochs_done += num_epochs
-                if idx_val is not None:
-                    self.best_acc = float(best_acc)
-                    self.params = best_params
-                else:
-                    self.params = self._final_params
-                self.output = evaluate(self.params)
-                self._labels = labels
-                return self
+        def forward(p, train):
+            # the loss reads the logits, the validation accuracy log-probs
+            out = hgnn_forward(p, None, adj, dropout=self.dropout,
+                               train=train, generator=gen, gx=gx,
+                               g_rowsum=g_rowsum)
+            if train:
+                return out
+            last.update(params=p, logits=out)
+            return torch.log_softmax(out, 1)
+
+        res = fit_gcn(self.params, make_optimizer, forward, labels,
+                      idx_train, idx_val, train_iters=num_epochs,
+                      mode="no_val" if idx_val is None else "val_acc",
+                      timers=self.timers, opt_state=adam_state,
+                      start_iter=self._epochs_done, generator=gen,
+                      jit_loop=jit_loop, loss=cross_entropy, before=set_rate)
+        self.epoch_ms = res.iter_ms
+        self.history = [{"epoch": h.pop("iter"), **h} for h in res.history]
+        if verbose:
+            for e in range(0, num_epochs, print_freq):
+                h = self.history[e]
+                acc = f" val_acc {h['acc_val']:.4f}" if "acc_val" in h else ""
+                print(f"Epoch {e}/{num_epochs} loss {h['loss_train']:.4f}"
+                      + acc)
+        self.opt_state = res.opt_state
+        self._schedule_at = schedule_at + num_epochs
+        self._final_params = res.final_params
+        self._rng_state = res.rng_state
+        self._epochs_done += num_epochs
+        if idx_val is not None:
+            self.best_acc = max((h["acc_val"] for h in self.history),
+                                default=-float("inf"))
+        self.params = res.params
+        # the chosen parameters' logits: those of fit_gcn's final evaluation
+        # (``res.log_probs``) when it was of these parameters
+        if last.get("params") is not res.params:
+            with torch.no_grad():
+                forward(res.params, False)
+        self.output = last["logits"]
+        self._labels = labels
+        return self
 
     @property
     def median_epoch_ms(self) -> float:
@@ -322,8 +274,6 @@ class HGNN:
         Adam state, schedule position, epoch count, dropout stream) in
         gcn_tpu's layout; continue with ``fit(..., resume_from=path)`` in
         either package."""
-        from gcn_tpu_torch.utils.checkpoint import save_training_state
-
         if getattr(self, "opt_state", None) is None:
             raise RuntimeError("nothing to save: call fit() first")
         save_training_state(path, self._final_params, self.opt_state,

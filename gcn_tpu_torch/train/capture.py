@@ -3,10 +3,12 @@
 gcn_tpu runs a whole fit as one ``lax.scan`` (``jit_loop=True``, the
 default of ``fit_gcn``, ``GCN.fit`` and ``HGNN.fit``): one dispatch, no
 host round trip between iterations. The port's counterpart is
-``CapturedLoop``: the caller writes one training iteration as a
-``body()`` that reads and writes only device tensors (parameters updated
-in place, the iteration's index and its results in preallocated buffers,
-selects instead of branches), and ``run(n)`` runs it ``n`` times:
+``CapturedLoop``, which runs the one training loop, ``train/loop.py``'s
+``fit_gcn``, in both its flavors: the loop writes one training iteration
+as a ``body()`` that reads and writes only device tensors (parameters
+updated in place, the iteration's index and its results in preallocated
+buffers, selects instead of branches), and ``run(n)`` runs it ``n``
+times:
 
   * on a CUDA device, the first ``WARMUP`` iterations run eagerly (they
     are the fit's own iterations: Adam's state, K2's side stream and its
@@ -16,10 +18,11 @@ selects instead of branches), and ``run(n)`` runs it ``n`` times:
     The whole loop runs on one side stream, which waits for the caller's
     stream first and is waited for after; the host never waits for the
     card between iterations. Kernels K1 and K2 launch inside the graph. A
-    capture or a replay that fails raises: nothing falls back to the
-    eager loop;
-  * on the CPU, which only the tests ask for, ``body`` runs ``n`` times
-    uncaptured: the same arithmetic, testable against gcn_tpu.
+    capture or a replay that fails raises: nothing falls back to plain
+    calls;
+  * on the CPU, or given the device None (the eager flavor,
+    ``jit_loop=False``), ``body`` runs ``n`` times uncaptured: the same
+    arithmetic, on the CPU testable against gcn_tpu.
 
 The dropout generator is registered with the graph
 (``register_generator_state``), so every replay draws new masks and
@@ -69,13 +72,14 @@ def _with_offset(state: torch.Tensor, offset: int) -> torch.Tensor:
 
 class CapturedLoop:
     """Runs ``body`` as a fit's iterations: eager warm-up, then replays of
-    one captured CUDA graph on a CUDA device; plain calls on the CPU."""
+    one captured CUDA graph on a CUDA ``device``; plain calls on the CPU
+    or when ``device`` is None (``fit_gcn``'s eager flavor)."""
 
     def __init__(self, body: Callable[[], None], device,
                  generator: Optional[torch.Generator] = None):
         self.body = body
-        self.device = torch.device(device)
-        self.cuda = self.device.type == "cuda"
+        self.device = None if device is None else torch.device(device)
+        self.cuda = self.device is not None and self.device.type == "cuda"
         self.generator = generator
         self.graph = None
         # the generator's state before the loop and after each iteration

@@ -9,19 +9,19 @@ The port of ``gcn_tpu.utils.timers`` with the same surface:
 
 Each timer also keeps its per-call samples, so a median can be read.
 ``Marks`` stamps a loop's iterations on the device's stream without waiting
-for it, for loops that must not stop the host each iteration: HGNN's
-epochs in both loop flavors, and a captured fit's replays
-(``train/capture.py``), whose intervals become the samples of the "step"
-timer (``Timer.add``) beside the ``fit_scan`` timer of the whole loop, so
-that step and epoch medians read alike in both flavors.
+for it, for loops that must not stop the host each iteration: the
+iterations of ``train/loop.fit_gcn`` in both its flavors, whose intervals
+become the samples of the "step" timer (``Timer.add``) and HGNN's
+``epoch_ms``, beside the ``fit_scan`` timer of the whole loop.
 
 The fit's phases are spans (``span``): ``fit``, the root of each fit
-(``train/loop.fit_gcn``, ``HGNN.fit``), and its children ``fit.prepare``
+(``train/loop.fit_gcn``), and its children ``fit.prepare``
 (entry to the first iteration), ``fit.loop`` (the ``fit_scan`` region, its
 wait for the device included) and ``fit.finish`` (the host reads and the
 final evaluation); inside ``fit.loop``, ``CapturedLoop.run`` opens
 ``loop.warmup``, ``loop.capture`` (on the card) and ``loop.replay``;
-``GAT.fit`` opens ``gat.layout`` (its layout and upload) before its
+``GAT.fit`` opens ``gat.layout`` (its layout and upload) and ``HGNN.fit``
+``hgnn.prepare`` (G's lowering, the uploads, the G X hoist) before its
 ``fit``. A
 span is a shared no-op unless a ``recording()`` is open, which collects
 the finished spans, or ``torch.profiler`` is tracing, where each span is

@@ -53,13 +53,16 @@ from gcn_tpu_torch.convert import params_from_numpy
 from gcn_tpu_torch.data import get_dataset
 from gcn_tpu_torch.graph import hypergraph as hg
 from gcn_tpu_torch.graph.normalize import gcn_normalize
-from gcn_tpu_torch.models import GCN, HGNN
-from gcn_tpu_torch.models.gcn_core import gcn_forward
+from gcn_tpu_torch.models import GCN, HGNN, gcn_core
+from gcn_tpu_torch.models import hgnn as hgnn_module
+from gcn_tpu_torch.models.gcn_core import gcn_forward, init_gcn_params
 from gcn_tpu_torch.models.layers import auto_order
+from gcn_tpu_torch.ops.adjacency import device_adjacency
 from gcn_tpu_torch.ops.spmm import hoist_spmm
 from gcn_tpu_torch.reorder import reorder_graph
 from gcn_tpu_torch.tile import degree_sort_order, panel_adjacency
-from gcn_tpu_torch.train import capture
+from gcn_tpu_torch.train import capture, optim
+from gcn_tpu_torch.train import loop as loop_module
 from gcn_tpu_torch.train.loop import fit_gcn
 from gcn_tpu_torch.train.optim import adam_l2
 from torch_port_native import native_reorder  # noqa: F401 (autouse)
@@ -383,6 +386,122 @@ def test_hgnn_resume_across_flavors(tmp_path, form, first, second):
     np.testing.assert_allclose(_losses(a.history) + _losses(b.history),
                                _losses(ref.history), rtol=1e-6)
     torch.testing.assert_close(b.output, ref.output, rtol=1e-6, atol=1e-6)
+
+
+# ---- the names the benchmark's fault check patches ------------------------
+#
+# benchmark/faults.py plants each fault by patching a module attribute of
+# the program for one fit. Each plant must still reach the fit: patched in
+# the same way, it changes a short CPU fit's losses.
+
+
+class _Still(torch.optim.Optimizer):
+    """An optimizer whose step changes nothing."""
+
+    def __init__(self, params, *args, **kwargs):
+        super().__init__(list(params), {"lr": 0.0})
+
+    def step(self, closure=None):
+        return None
+
+
+def _half_batch(real):
+    return lambda out, labels, idx: real(out, labels,
+                                         idx[: max(idx.numel() // 2, 1)])
+
+
+def _unscaled_backward(real):
+    def dropout(generator, x, rate, train):
+        y = real(generator, x, rate, train)
+        if not train or rate <= 0.0:
+            return y
+        return y.detach() + (1.0 - rate) * (y - y.detach())
+    return dropout
+
+
+def _still(real):
+    return lambda params, *a, **k: _Still(params)
+
+
+def _gcn_losses():
+    """Five steps of a GCN fit as the benchmark's GCN family makes one:
+    ``train.loop.fit_gcn`` with ``train.optim.adam_l2`` looked up at the
+    call and ``gcn_forward`` at dropout 0.5."""
+    data = get_dataset("synth-tiny", seed=1)
+    adj = device_adjacency(gcn_normalize(data.adj), "coo", device="cpu")
+    feats = hoist_spmm(adj, torch.tensor(data.features, dtype=torch.float32))
+    p0 = init_gcn_params(torch.Generator().manual_seed(0),
+                         data.num_features, 8, data.num_classes,
+                         device="cpu")
+    gen = torch.Generator().manual_seed(3)
+
+    def forward(p, train):
+        return gcn_forward(p, feats, adj, orders=("xw", "a_xw"),
+                           dropout_rate=0.5, train=train, generator=gen)
+
+    res = loop_module.fit_gcn(
+        p0, lambda ps: optim.adam_l2(ps, 0.01, 5e-4), forward,
+        torch.tensor(data.labels), torch.tensor(data.idx_train),
+        torch.tensor(data.idx_val), train_iters=5, mode="val",
+        generator=gen)
+    return _losses(res.history)
+
+
+def _hgnn_fit(epochs=5, jit_loop=True):
+    x, labels = _cloud()
+    g = hg.generate_G_from_H(hg.construct_H_with_KNN(x, 6))
+    m = HGNN(24, 4, n_hid=16, dropout=0.5, milestones=(2,), adj_kind="coo",
+             device="cpu")
+    m.fit(x, g, labels, np.arange(100), idx_val=np.arange(100, 160),
+          num_epochs=epochs, jit_loop=jit_loop)
+    return m
+
+
+def _hgnn_losses():
+    return _losses(_hgnn_fit().history)
+
+
+# {patched name: (its owner, attribute, plant from the real value, fit)}
+HOOKS = {
+    "train.loop.masked_nll": (loop_module, "masked_nll", _half_batch,
+                              _gcn_losses),
+    "train.optim.adam_l2": (optim, "adam_l2", _still, _gcn_losses),
+    "models.gcn_core.dropout": (gcn_core, "dropout", _unscaled_backward,
+                                _gcn_losses),
+    "models.hgnn.cross_entropy": (hgnn_module, "cross_entropy", _half_batch,
+                                  _hgnn_losses),
+    "models.hgnn.adam_l2": (hgnn_module, "adam_l2", _still, _hgnn_losses),
+    "models.hgnn.dropout_fn": (hgnn_module, "dropout_fn", _unscaled_backward,
+                               _hgnn_losses),
+    # MultiStepLR never lowers the rate: the losses part after the
+    # milestone at epoch 2
+    "HGNN.lr_at": (HGNN, "lr_at", lambda real: lambda self, epoch: self.lr,
+                   _hgnn_losses)}
+
+
+@pytest.mark.parametrize("path", sorted(HOOKS))
+def test_fault_hook_changes_the_fit(monkeypatch, path):
+    owner, name, plant, losses = HOOKS[path]
+    clean = losses()
+    monkeypatch.setattr(owner, name, plant(getattr(owner, name)))
+    faulty = losses()
+    monkeypatch.undo()
+    assert losses() == clean
+    assert len(faulty) == len(clean)
+    assert faulty != clean
+
+
+@pytest.mark.parametrize("jit_loop", [True, False])
+def test_hgnn_fit_leaves_what_the_benchmark_reads(jit_loop):
+    """The benchmark's HGNN family reads each epoch's time, the loop's
+    ``fit_scan`` sample, Adam's first moments and the last iterate."""
+    m = _hgnn_fit(epochs=7, jit_loop=jit_loop)
+    assert len(m.epoch_ms) == 7 and len(m.history) == 7
+    assert m.timers("fit_scan").d.count == 1
+    assert sorted(m.opt_state) == [0, 1, 2, 3]
+    assert all("exp_avg" in m.opt_state[i] for i in range(4))
+    assert set(m._final_params) == {"hgc1", "hgc2"}
+    assert m.best_acc == max(h["acc_val"] for h in m.history)
 
 
 # ---- the loop's own pieces -----------------------------------------------

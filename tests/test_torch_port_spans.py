@@ -1,12 +1,13 @@
 """The fit's spans and the call counters of ``gcn_tpu_torch/utils/timers.py``
 on the CPU, and a captured fit's spans on the card (marked ``cuda``).
 
-Under ``recording()`` a fit gives one span tree: ``fit``, its children
-``fit.prepare``, ``fit.loop`` and ``fit.finish`` in that order and covering
-it, and inside ``fit.loop`` ``loop.warmup`` and ``loop.replay`` (captured
-flavor; ``loop.capture`` exists on the card only) or a single
-``loop.replay`` (eager flavor). Under ``torch.profiler`` every span is a
-host event of its name. The COO product counts each of its products in
+Under ``recording()`` a fit gives one span tree, whatever its model and
+flavor: ``fit``, its children ``fit.prepare``, ``fit.loop`` and
+``fit.finish`` in that order and covering it, and inside ``fit.loop``
+``loop.warmup`` and ``loop.replay`` (``loop.capture`` exists on the card
+only, in the captured flavor). An HGNN fit opens ``hgnn.prepare`` before
+its ``fit``, as a root span of its own. Under ``torch.profiler`` every span
+is a host event of its name. The COO product counts each of its products in
 ``counters["spmm_coo"]``, so a hoisted two-layer fit with validation makes
 three calls an iteration, in its warm-up as in the rest. A GAT fit opens
 ``gat.layout`` before its ``fit``, as a root span of its own, and counts
@@ -95,13 +96,13 @@ def test_fit_records_the_span_tree(flavor):
     with recording() as spans:
         run()
     tree = _tree(spans)
-    loop_children = (["loop.replay"] if flavor == "gcn_eager"
-                     else ["loop.warmup", "loop.replay"])
-    assert set(tree) == {"fit", "fit.prepare", "fit.loop", "fit.finish",
-                         *loop_children}
+    loop_children = ["loop.warmup", "loop.replay"]
+    roots = ["hgnn.prepare"] if flavor == "hgnn" else []
+    assert set(tree) == {*roots, "fit", "fit.prepare", "fit.loop",
+                         "fit.finish", *loop_children}
     fit = tree["fit"]
     assert fit.parent is None and spans[-1] is fit
-    assert {s.fit for s in spans} == {fit.id}
+    assert {s.fit for s in spans if s.name not in roots} == {fit.id}
     parents = {"fit.prepare": "fit", "fit.loop": "fit", "fit.finish": "fit",
                **{name: "fit.loop" for name in loop_children}}
     for name, parent in parents.items():
@@ -115,8 +116,20 @@ def test_fit_records_the_span_tree(flavor):
     assert tree["fit.loop"].ms - sum(s.ms for s in loop) < 1.0
     iters = {s.name: s.attrs["iters"] for s in loop}
     assert sum(iters.values()) == ITERS
-    if flavor != "gcn_eager":
-        assert iters["loop.warmup"] == WARMUP
+    assert iters["loop.warmup"] == WARMUP
+
+
+def test_hgnn_fit_opens_its_prepare_span_before_the_fit():
+    """G's lowering, the uploads and the G X hoist are ``hgnn.prepare``,
+    a root span that ends before the ``fit`` span starts."""
+    with recording() as spans:
+        _hgnn()()
+    tree = _tree(spans)
+    prepare, fit = tree["hgnn.prepare"], tree["fit"]
+    assert prepare.parent is None and prepare.fit is None
+    assert prepare.start_ns <= prepare.end_ns <= fit.start_ns
+    assert prepare.counts["spmm_coo"] > 0
+    assert {s.fit for s in spans if s is not prepare} == {fit.id}
 
 
 def test_two_fits_give_two_ids():
