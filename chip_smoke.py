@@ -245,23 +245,29 @@ Phases (each failure exits non-zero):
      only), at the paper's (H, F) = (4, 256) and (6, 40): the forward and
      the cotangents of wh, el and er against the plain version in
      float64, head by head, at rtol 1e-4 and atol 1e-5 of the largest
-     element; two calls bit-equal, forward and backward; the device ms of
-     the forward and of the forward with backward beside the plain
-     version's (float32) and the bound of ``benchmark/gat_work.py``'s
-     count (bytes and flops at 3.35 TB/s and 67 TFLOP/s), and each
-     kernel's ms in one forward with backward (torch.profiler, read by
+     element; two calls bit-equal, forward and backward; the layout's
+     community order bit-equal to ``walk_order``'s longest-first one
+     (out, lse and the cotangents), the layout counted once under
+     ``gat_layout_local_order``; the device ms of the forward and of the
+     forward with backward under both orders beside the plain version's
+     (float32) and the bound of ``benchmark/gat_work.py``'s count (bytes
+     and flops at 3.35 TB/s and 67 TFLOP/s), and each kernel's ms in one
+     forward with backward under both orders (torch.profiler, read by
      ``benchmark/trace.py``); then a 10-iteration ``GAT.fit`` at heads (4,
      4, 6) and widths (256, 256, 40), eager, its counters zeroed just
      before it (9 attention calls an iteration and 3 for the final
      evaluation of the chosen parameters, every one through the
-     kernels), and the same fit captured, bit-equal to it.
+     kernels; one layout in community order), and the same fit
+     captured, bit-equal to it.
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
 kernel records, and ``captured_host_calls``), the COO kernel at [ladder]'s
 widths (its launches by width in the eager v4 fit), GAT's attention at
 each (H, F) (its launches at that shape in [gat]'s eager fit, each
-kernel's ms in ``kernels_ms``), K1 on the serving layouts
+kernel's ms in ``kernels_ms``; ``ms_longest_first`` and
+``kernels_ms_longest_first`` the same with the rows handed out longest
+first), K1 on the serving layouts
 (with their plans), the COO kernel and K1 on HGNN's G at k=40, and K1 at
 the frequency split's and the sharded parts' shapes (every flavor's new
 layouts too, and the model axis's hidden shard), each
@@ -2718,35 +2724,52 @@ def gat_phase(dev, data):
     against the plain version (``_gat_attention_plain``) in float64, head by
     head, at rtol 1e-4 and atol 1e-5 of the largest element (float32 sums
     over rows of hundreds of edges taken in another order, an exp an
-    edge); two calls bit-equal, forward and backward; the kernels' device
-    ms forward and forward with backward beside the plain version's in
-    float32 and the bound of ``benchmark/gat_work.py``'s bytes and flops;
+    edge); two calls bit-equal, forward and backward; the layout's
+    community order bit-equal to the same layout with ``walk_order``'s
+    longest-first orders; under both orders the kernels' device ms
+    forward and forward with backward, beside the plain version's in
+    float32 and the bound of ``benchmark/gat_work.py``'s bytes and flops,
     and one forward with backward under torch.profiler, read by the
     benchmark's ``trace.read``, for each kernel's own ms. Then a
     ``GAT.fit`` at the paper's widths, eager, its counters zeroed just
     before it: 9 attention calls an iteration and 3 for the final
     evaluation of the chosen parameters (the loop's last step in both
-    flavors), every one through the kernels; and the same fit captured, bit-equal to it. Returns the
-    kernels line's rows, one a shape."""
+    flavors), every one through the kernels, and one layout counted under
+    ``gat_layout_local_order``; and the same fit captured, bit-equal to
+    it. Returns the kernels line's rows, one a shape."""
+    import dataclasses
+
     import torch
 
     from benchmark import gat_work, trace
     from gcn_tpu_torch.models.gat import GAT as GatModel
     from gcn_tpu_torch.ops import gat_attn
+    from gcn_tpu_torch.ops.adjacency import walk_order
     from gcn_tpu_torch.utils.chain_timing import device_ms
     from gcn_tpu_torch.utils.timers import counters
 
     t0 = time.time()
     nfeat, ncls = data.num_features, data.num_classes
+    made = counters["gat_layout_local_order"]
     lay = GatModel(nfeat, ncls, device=dev).build_layout(data.adj)
     torch.cuda.synchronize()
+    made = counters["gat_layout_local_order"] - made
     row_len = lay.row_len.cpu()
     print(f"[gat] synth-arxiv with self loops: n={lay.n} edges={lay.nnz}, "
           f"{lay.long_rows} rows of more than 256 edges, longest "
           f"{int(row_len.max())}, {lay.t_long_rows} such transpose rows "
-          f"({time.time() - t0:.1f}s)", flush=True)
+          f"({time.time() - t0:.1f}s); gat_layout_local_order +{made}",
+          flush=True)
     if int(row_len.sum()) != lay.nnz or int(lay.row_ptr[-1]) != lay.nnz:
         fail("the attention's rows do not cover its edges alone")
+    if made != 1:
+        fail(f"one layout counted {made} times in community order")
+    # the same layout with the rows handed out longest first, as before
+    # the community order
+    longest = dataclasses.replace(lay, **{
+        name: torch.from_numpy(walk_order(n.cpu().numpy())[0]).to(dev)
+        for name, n in (("row_order", lay.row_len),
+                        ("t_row_order", torch.diff(lay.t_row_ptr)))})
     rows, launches = [], {}
     for heads, width in GAT_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2756,8 +2779,11 @@ def gat_phase(dev, data):
                                           (lay.n, heads, width)))
         leaves = [t.requires_grad_(True) for t in (wh, el, er)]
 
-        def kernel():
-            return gat_attn.gat_attention(lay, wh, el, er)
+        def kernel(layout=lay):
+            return gat_attn.gat_attention(layout, wh, el, er)
+
+        def kernel_longest():
+            return kernel(longest)
 
         def plain():
             return gat_attn._gat_attention_plain(lay, wh, el, er, 0.2)
@@ -2790,12 +2816,30 @@ def gat_phase(dev, data):
         check_repeat(f"attention ({heads}, {width}) backward",
                      lambda: torch.cat([t.flatten() for t in both(kernel)]))
 
+        def with_lse(fn):
+            out = fn()
+            # the forward saves (wh, el, er, out, lse) for its backward
+            return [out.grad_fn.saved_tensors[4], *both(lambda: out)]
+
+        same = [torch.equal(a, b) for a, b in
+                zip(with_lse(kernel), with_lse(kernel_longest))]
+        print(f"  ({heads}, {width}) community order against longest "
+              f"first: lse, out, dwh, d_el, d_er bit-equal {same} -> "
+              f"{'ok' if all(same) else 'MISMATCH'}", flush=True)
+        if not all(same):
+            fail(f"attention ({heads}, {width}): the rows' order changed "
+                 f"its results")
+
         def forward_only(fn):
             with torch.no_grad():
                 fn()
 
         ms = {"kernel_fwd": device_ms(lambda: forward_only(kernel), 20),
-              "kernel_fwd_bwd": device_ms(lambda: both(kernel), 20)}
+              "kernel_fwd_bwd": device_ms(lambda: both(kernel), 20),
+              "longest_fwd": device_ms(lambda: forward_only(kernel_longest),
+                                       20),
+              "longest_fwd_bwd": device_ms(lambda: both(kernel_longest),
+                                           20)}
         for name, call in (("plain_fwd", lambda: forward_only(plain)),
                            ("plain_fwd_bwd", lambda: both(plain))):
             try:
@@ -2808,17 +2852,25 @@ def gat_phase(dev, data):
                 for call in ("forward", "backward")}
         b_fwd, by = least_ms(*work["forward"])
         b_bwd, by_bwd = least_ms(*work["backward"])
-        prof = trace.profile(lambda: both(kernel))
-        by_kernel = {name: sec * 1e3 for name, sec in prof["device_ops"]}
+        by_kernel, by_kernel_longest = (
+            {name: sec * 1e3 for name, sec in
+             trace.profile(lambda: both(fn))["device_ops"]}
+            for fn in (kernel, kernel_longest))
         print(f"  ({heads}, {width}): kernels fwd {ms['kernel_fwd']:.4f} ms, "
-              f"fwd + bwd {ms['kernel_fwd_bwd']:.4f} ms | plain (f32) "
-              f"{ms['plain_fwd']} / {ms['plain_fwd_bwd']} ms | bound "
-              f"{b_fwd:.5f} / {b_fwd + b_bwd:.5f} ms (by {by}, {by_bwd}) | "
-              f"{100 * b_fwd / ms['kernel_fwd']:.1f}% / "
-              f"{100 * (b_fwd + b_bwd) / ms['kernel_fwd_bwd']:.1f}% of it",
+              f"fwd + bwd {ms['kernel_fwd_bwd']:.4f} ms | longest first "
+              f"{ms['longest_fwd']:.4f} / {ms['longest_fwd_bwd']:.4f} ms | "
+              f"plain (f32) {ms['plain_fwd']} / {ms['plain_fwd_bwd']} ms | "
+              f"bound {b_fwd:.5f} / {b_fwd + b_bwd:.5f} ms (by {by}, "
+              f"{by_bwd}) | {100 * b_fwd / ms['kernel_fwd']:.1f}% / "
+              f"{100 * (b_fwd + b_bwd) / ms['kernel_fwd_bwd']:.1f}% of it "
+              f"(longest first {100 * b_fwd / ms['longest_fwd']:.1f}% / "
+              f"{100 * (b_fwd + b_bwd) / ms['longest_fwd_bwd']:.1f}%)",
               flush=True)
+        pairs = {name: [v, by_kernel_longest.get(name)]
+                 for name, v in by_kernel.items()}
         print(f"  ({heads}, {width}) one forward with backward by device "
-              f"op (ms): {json.dumps(by_kernel)}", flush=True)
+              f"op, ms in community order | longest first: "
+              f"{json.dumps(pairs)}", flush=True)
         rows.append({
             "name": "gat_attn",
             "route": "cuda",
@@ -2830,10 +2882,12 @@ def gat_phase(dev, data):
             "launches": None,
             "max_abs_err": max(errs),
             "ms": [ms["kernel_fwd"], ms["kernel_fwd_bwd"]],
+            "ms_longest_first": [ms["longest_fwd"], ms["longest_fwd_bwd"]],
             "plain_ms": [ms["plain_fwd"], ms["plain_fwd_bwd"]],
             "bound_ms": [b_fwd, b_fwd + b_bwd],
             "bound_by": by,
             "kernels_ms": by_kernel,
+            "kernels_ms_longest_first": by_kernel_longest,
         })
         del wh, el, er, dout, leaves, got
         torch.cuda.empty_cache()
@@ -2854,14 +2908,19 @@ def gat_phase(dev, data):
         if not jit_loop:
             launches, share = gat_kernel_calls(counters)
             calls = counters["gat_attn"]
+            local = counters["gat_layout_local_order"]
             print(f"  eager: {calls} attention calls ({calls / GAT_ITERS} "
                   f"an iteration), launches by (H, F) {launches}, share "
-                  f"{share} ({time.time() - t1:.1f}s)", flush=True)
+                  f"{share}; gat_layout_local_order {local} "
+                  f"({time.time() - t1:.1f}s)", flush=True)
             # 9 an iteration, and the final evaluation's 3
             if calls != 9 * GAT_ITERS + 3 or share != 1.0:
                 fail(f"GAT.fit made {calls} attention calls (expected "
                      f"{9 * GAT_ITERS + 3}), {share} of them on the "
                      f"kernels")
+            if local != 1:
+                fail(f"GAT.fit counted {local} layouts in community order "
+                     f"(expected 1)")
     eager, cap = fits[False], fits[True]
     losses = [h["loss_train"] for h in eager.history]
     if not losses[-1] < losses[0] or not torch.isfinite(eager.output).all():

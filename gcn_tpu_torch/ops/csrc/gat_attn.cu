@@ -15,9 +15,14 @@
 // H floats. Forward edges are sorted by row: row i's run of sources is
 // cols[row_ptr[i] .. row_ptr[i+1]). The transpose groups the same edges by
 // source j: t_cols holds each edge's destination row i, t_edge its
-// position in the forward arrays. order / t_order hand the rows out
-// longest first; their first n_long rows hold more than LONG_ROW (256)
-// edges. No padding edge lies in any run.
+// position in the forward arrays. order / t_order hand the rows out: first
+// the rows of more than 64 edges, longest first, the first n_long of them
+// past LONG_ROW (256), then the others in the rabbit order of the
+// pattern, each run of 1,024 rows longest first, so that a community's
+// rows, which gather the same source rows, run together while those rows
+// are in L2, and a warp's groups walk rows of near equal length. The
+// order decides only which group walks a row and when, never the order
+// of a row's sums. No padding edge lies in any run.
 //
 //   s_ij = er[i,h] + el[j,h];  e_ij = LeakyReLU(s_ij)
 //   lse_i = log sum_j exp(e_ij);  alpha_ij = exp(e_ij - lse_i)

@@ -19,9 +19,21 @@ differentiated by autograd. There is no switch and no fallback.
 Its layout, ``GatLayout``, is made once by ``gat_layout`` from a
 ``CooAdj`` of A + I (``ops/adjacency.py``): the real edges only, so that
 ``CooAdj``'s padding edges, which close its last row's run, never enter a
-softmax; each direction's row offsets and longest-first walk order; and
-the transpose's map to each edge's forward position, which the backward
+softmax; each direction's row offsets and walk order; and the
+transpose's map to each edge's forward position, which the backward
 reads and writes the forward's per-edge values through.
+
+The walk order hands out the rows of more than ``HEAD_ROW`` edges first,
+longest first (the kernels' ``long_rows``, past ``LONG_ROW``, lead), and
+then every other row in the rabbit order of the pattern
+(``reorder.compute_permutation``, made symmetric for it if it is not),
+each run of ``RUN_ROWS`` rows of it longest first: a community's rows
+are walked together, so the source rows they gather are still in L2
+when the next of them gathers them again, and the rows that share a
+warp have near equal lengths. The kernels add each row's edges in edge
+order whatever the order in which the rows are handed out, so the order
+changes no bit of any result. Each layout counts once under
+``gat_layout_local_order`` in ``utils.timers.counters``.
 
 Each call (forward or backward) counts once in ``utils.timers.counters``
 under ``gat_attn``, on either device; a call through the kernels also
@@ -38,12 +50,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from gcn_tpu_torch import reorder
+from gcn_tpu_torch.graph.csr import CSRGraph
 from gcn_tpu_torch.ops import _build
-from gcn_tpu_torch.ops.adjacency import CooAdj, segment_lengths, walk_order
+from gcn_tpu_torch.ops.adjacency import LONG_ROW, CooAdj, segment_lengths
 from gcn_tpu_torch.ops.spmm import segment_sum
 from gcn_tpu_torch.utils.timers import counters
 
 _BY_SHAPE = "gat_attn_h{}_f{}"  # a call through the kernels, by (H, F)
+# Rows of more edges than this are handed out first, longest first, so
+# that no walk of 64-256 edges is left for the last wave.
+HEAD_ROW = 64
+# The other rows follow the rabbit order in runs of this many, each run
+# longest first: the groups of a warp (4 (row, head)s at width 40) then
+# walk rows of near equal length, and a run stays within a community.
+RUN_ROWS = 1024
 
 _lib = None
 
@@ -54,8 +75,10 @@ class GatLayout:
 
     Forward: ``rows`` / ``cols`` (int64[nnz]) sorted by row, row i's run
     ``[row_ptr[i], row_ptr[i + 1])`` (``row_len`` its counts), the rows
-    handed out in ``row_order`` (longest first, ``walk_order``), whose
-    first ``long_rows`` hold more than ``adjacency.LONG_ROW`` edges.
+    handed out in ``row_order``: first the rows of more than ``HEAD_ROW``
+    edges, longest first, the first ``long_rows`` of them past
+    ``adjacency.LONG_ROW``, then the others in the rabbit order of the
+    pattern, each run of ``RUN_ROWS`` longest first.
     Transpose: ``t_cols`` (int64[nnz]) the destination row i of each edge
     grouped by its source j, in row order within a source, ``t_edge`` its
     position in the forward arrays, and ``t_row_ptr``, ``t_row_order``,
@@ -76,6 +99,22 @@ class GatLayout:
     nnz: int
 
 
+def _local_order(row_len: np.ndarray, perm: np.ndarray):
+    """(the rows of more than ``HEAD_ROW`` edges, longest first, ties in
+    row order, then every other row in the order of ``perm``, each run
+    of ``RUN_ROWS`` of them longest first, ties in that order; how many
+    rows are long, past ``LONG_ROW``): the order in which the attention's
+    kernels hand the rows out."""
+    row_len = np.asarray(row_len)
+    head = np.flatnonzero(row_len > HEAD_ROW)
+    head = head[np.argsort(-row_len[head], kind="stable")]
+    rest = perm[row_len[perm] <= HEAD_ROW]
+    rest = rest[np.lexsort((-row_len[rest],
+                            np.arange(rest.size) // RUN_ROWS))]
+    return (np.concatenate([head, rest]).astype(np.int64),
+            int((row_len > LONG_ROW).sum()))
+
+
 def gat_layout(adj: CooAdj) -> GatLayout:
     """The attention's layout of ``adj`` (a square ``CooAdj`` of A + I),
     made on the host and uploaded to ``adj``'s device. The edge weights
@@ -87,24 +126,28 @@ def gat_layout(adj: CooAdj) -> GatLayout:
     rows = adj.rows[:e].cpu().numpy()
     cols = adj.cols[:e].cpu().numpy()
     t_edge = np.argsort(cols, kind="stable")   # by source, rows in order
-
-    def direction(keys):
-        row_len = segment_lengths(keys, n)
-        order, n_long = walk_order(row_len)
-        return row_len, np.concatenate([[0], np.cumsum(row_len)]), order, \
-            n_long
-
-    fwd, bwd = direction(rows), direction(cols[t_edge])
+    row_len = segment_lengths(rows, n)
+    t_row_len = segment_lengths(cols[t_edge], n)
+    row_ptr, t_row_ptr = (np.concatenate([[0], np.cumsum(c)])
+                          for c in (row_len, t_row_len))
+    pattern = CSRGraph(row_ptr, cols, np.ones(e, np.float32), (n, n))
+    symmetric = (np.array_equal(rows, cols[t_edge])
+                 and np.array_equal(cols, rows[t_edge]))
+    perm = reorder.compute_permutation(
+        pattern if symmetric else pattern.symmetrize(), "rabbit")
+    order, n_long = _local_order(row_len, perm)
+    t_order, t_n_long = _local_order(t_row_len, perm)
+    counters["gat_layout_local_order"] += 1
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
             adj.rows.device)
 
-    return GatLayout(rows=up(rows), cols=up(cols), row_len=up(fwd[0]),
-                     row_ptr=up(fwd[1]), row_order=up(fwd[2]),
-                     long_rows=fwd[3], t_cols=up(rows[t_edge]),
-                     t_edge=up(t_edge), t_row_ptr=up(bwd[1]),
-                     t_row_order=up(bwd[2]), t_long_rows=bwd[3], n=n,
+    return GatLayout(rows=up(rows), cols=up(cols), row_len=up(row_len),
+                     row_ptr=up(row_ptr), row_order=up(order),
+                     long_rows=n_long, t_cols=up(rows[t_edge]),
+                     t_edge=up(t_edge), t_row_ptr=up(t_row_ptr),
+                     t_row_order=up(t_order), t_long_rows=t_n_long, n=n,
                      nnz=e)
 
 

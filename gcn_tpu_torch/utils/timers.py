@@ -35,11 +35,12 @@ No span is opened inside a captured iteration.
 ``ops/spmm.py``, forward or backward, on either device) and
 ``spmm_coo_k<k>`` (a launch of its CUDA kernel at width k), ``gat_attn``
 (each call of GAT's attention, ``ops/gat_attn.py``, forward or backward,
-on either device) and ``gat_attn_h<H>_f<F>`` (such a call through its
-CUDA kernels, by heads and width). A call inside
-a CUDA graph capture counts once and the graph's replays count nothing, so
-a captured fit's calls an iteration are the ``counts`` of its
-``loop.capture`` span.
+on either device), ``gat_attn_h<H>_f<F>`` (such a call through its
+CUDA kernels, by heads and width) and ``gat_layout_local_order`` (each
+attention layout made, its rows walked in community order). A call
+inside a CUDA graph capture counts once and the graph's replays count
+nothing, so a captured fit's calls an iteration are the ``counts`` of
+its ``loop.capture`` span.
 """
 
 from __future__ import annotations

@@ -22,10 +22,12 @@ import pytest
 import torch
 
 import torch_port_gat_reference as ref
-from gcn_tpu_torch.graph.csr import coo_to_csr
+from gcn_tpu_torch.graph.csr import CSRGraph, coo_to_csr
 from gcn_tpu_torch.models.gat import GAT, gat_forward, gat_layers
+from gcn_tpu_torch.ops import gat_attn
 from gcn_tpu_torch.ops.adjacency import EDGE_PAD, LONG_ROW, device_adjacency
 from gcn_tpu_torch.ops.gat_attn import gat_attention, gat_layout
+from gcn_tpu_torch.reorder import compute_permutation
 from gcn_tpu_torch.utils.timers import counters
 
 N, F_IN, C = 300, 12, 5
@@ -66,6 +68,65 @@ def test_layout_keeps_padding_out_of_every_row(graph):
     assert lay.long_rows == lay.t_long_rows == 1
     assert int(lay.row_len[0]) == 281 > LONG_ROW
     assert int(lay.row_order[0]) == int(lay.t_row_order[0]) == 0
+
+
+def _order_graph(kind, seed=0):
+    """Vertex 0 a hub of 280 neighbours, vertex 1 one of 100 (past
+    ``HEAD_ROW``, short of ``LONG_ROW``), random edges among 2..298, with
+    self loops; "symmetric" or "directed" (the edges one way only: the
+    hubs' columns hold few entries)."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.zeros(280, np.int64), np.ones(100, np.int64),
+                          rng.integers(2, N - 1, 600)])
+    dst = np.concatenate([np.arange(1, 281), np.arange(150, 250),
+                          rng.integers(2, N - 1, 600)])
+    g = coo_to_csr(src, dst, None, (N, N))
+    return (g.symmetrize() if kind == "symmetric" else g).with_self_loops()
+
+
+def _runs_longest_first(rows, row_len, run):
+    return np.concatenate([
+        rows[i:i + run][np.argsort(-row_len[rows[i:i + run]],
+                                   kind="stable")]
+        for i in range(0, rows.size, run)])
+
+
+@pytest.mark.parametrize("run_rows", [gat_attn.RUN_ROWS, 50])
+@pytest.mark.parametrize("direction", ["forward", "transpose"])
+@pytest.mark.parametrize("kind", ["symmetric", "directed"])
+def test_walk_order_is_long_rows_then_rabbit_order(monkeypatch, kind,
+                                                   direction, run_rows):
+    """Each walk order holds every row once: first the rows past
+    ``HEAD_ROW``, longest first, those past ``LONG_ROW`` leading, then
+    the rest in the rabbit order of the pattern (made symmetric for it
+    when it is not), each run of ``RUN_ROWS`` longest first; one count of
+    ``gat_layout_local_order`` a layout. The runs are also cut shorter
+    than the graph, so that there are several."""
+    monkeypatch.setattr(gat_attn, "RUN_ROWS", run_rows)
+    g = _order_graph(kind)
+    before = counters["gat_layout_local_order"]
+    lay = gat_layout(device_adjacency(g, "coo", device="cpu"))
+    assert counters["gat_layout_local_order"] == before + 1
+    pattern = CSRGraph(g.indptr, g.indices, np.ones(g.nnz, np.float32),
+                       g.shape)
+    perm = compute_permutation(
+        pattern if kind == "symmetric" else pattern.symmetrize(), "rabbit")
+    if direction == "forward":
+        order, n_long = lay.row_order.numpy(), lay.long_rows
+        row_len = g.row_degrees()
+    else:
+        order, n_long = lay.t_row_order.numpy(), lay.t_long_rows
+        row_len = g.col_degrees()
+    assert np.array_equal(np.sort(order), np.arange(N))
+    head = np.flatnonzero(row_len > gat_attn.HEAD_ROW)
+    wide = direction == "forward" or kind == "symmetric"
+    assert list(head) == ([0, 1] if wide else [])
+    assert n_long == int((row_len > LONG_ROW).sum()) == int(wide)
+    assert np.array_equal(order[:head.size],
+                          head[np.argsort(-row_len[head], kind="stable")])
+    rest = perm[row_len[perm] <= gat_attn.HEAD_ROW]
+    assert np.array_equal(order[head.size:],
+                          _runs_longest_first(rest, row_len, run_rows))
 
 
 def test_transpose_map_points_at_each_edges_forward_position(graph):

@@ -10,19 +10,26 @@ This file imports neither jax nor gcn_tpu:
 The graph has ogbn-arxiv's shape cut to 20,000 vertices: hubs whose rows
 hold more than ``LONG_ROW`` edges, an isolated last vertex beside
 ``CooAdj``'s padding, and a number of edges that is not a multiple of
-``EDGE_PAD``. Tolerance against the plain version computed in float64:
-rtol 1e-4 and atol 1e-5 of the largest element, for float32 sums over
-rows of up to ~1,000 edges taken in another order, and an exp per edge.
+``EDGE_PAD``; a second graph of the same size plants 40 communities
+behind a shuffled vertex order, where the layout's community order and
+``walk_order``'s longest-first one must give the same bits. Tolerance
+against the plain version computed in float64: rtol 1e-4 and atol 1e-5
+of the largest element, for float32 sums over rows of up to ~1,000
+edges taken in another order, and an exp per edge.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from gcn_tpu_torch.data.synthetic import sbm
 from gcn_tpu_torch.graph.csr import coo_to_csr
 from gcn_tpu_torch.models.gat import GAT
 from gcn_tpu_torch.ops import gat_attn
-from gcn_tpu_torch.ops.adjacency import EDGE_PAD, LONG_ROW, device_adjacency
+from gcn_tpu_torch.ops.adjacency import (EDGE_PAD, LONG_ROW,
+                                         device_adjacency, walk_order)
 from gcn_tpu_torch.utils.timers import counters, recording
 
 N = 20_000
@@ -96,6 +103,50 @@ def test_two_calls_are_bit_equal_on_card(cuda, heads, width):
         runs.append([out, *torch.autograd.grad(out, (wh, el, er), dout)])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _community_layout(device):
+    """A + I of 40 planted communities in shuffled vertex order, with
+    hubs of up to 1,000 neighbours, laid out by ``gat_layout``."""
+    g, _ = sbm(N, 40, avg_degree=14.0, p_in_frac=0.9, seed=5)
+    r, c, _ = g.to_coo()
+    hubs = np.repeat(np.arange(3), [1000, 600, 300])
+    far = np.random.default_rng(6).integers(3, N, hubs.size)
+    g = coo_to_csr(np.concatenate([r, hubs]), np.concatenate([c, far]),
+                   None, (N, N)).symmetrize().with_self_loops()
+    return gat_attn.gat_layout(device_adjacency(g, "coo", device=device))
+
+
+def _results(lay, leaves, dout):
+    """out, lse (the forward's saved row logsumexp) and the cotangents of
+    wh, el and er."""
+    out = gat_attn.gat_attention(lay, *leaves)
+    lse = out.grad_fn.saved_tensors[4]
+    return [out.detach(), lse, *torch.autograd.grad(out, leaves, dout)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,width", SHAPES[:2])
+def test_community_order_is_bit_equal_to_longest_first_on_card(cuda, heads,
+                                                               width):
+    """The rows' order decides which group walks a row and when, never
+    the order of a row's sums: the layout's community order and
+    ``walk_order``'s longest-first order give the same bits."""
+    lay = _community_layout(cuda)
+    assert lay.long_rows == lay.t_long_rows == 3
+    longest = dataclasses.replace(
+        lay, row_order=torch.from_numpy(walk_order(
+            lay.row_len.cpu().numpy())[0]).to(cuda),
+        t_row_order=torch.from_numpy(walk_order(
+            torch.diff(lay.t_row_ptr).cpu().numpy())[0]).to(cuda))
+    assert not torch.equal(longest.row_order, lay.row_order)
+    assert torch.equal(longest.row_order[:3], lay.row_order[:3])
+    leaves = [t.requires_grad_(True) for t in _inputs(heads, width, cuda)]
+    dout = torch.randn((N, heads, width), device=cuda)
+    for name, a, b in zip(("out", "lse", "dwh", "d_el", "d_er"),
+                          _results(lay, leaves, dout),
+                          _results(longest, leaves, dout)):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
