@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root; needs a GPU
     python3 chip_smoke.py --gat    # the [gat] phase alone (phase 17)
+    python3 chip_smoke.py --deepergcn [PARENT_ROOT]   # [deepergcn] alone
     python3 chip_smoke.py --hgnn   # the HGNN phase alone (phase 13)
 
 Drives the port's paths on the card — v6 GCN training through
@@ -258,7 +259,20 @@ Phases (each failure exits non-zero):
      before it (9 attention calls an iteration and 3 for the final
      evaluation of the chosen parameters, every one through the
      kernels; one layout in community order), and the same fit
-     captured, bit-equal to it.
+     captured, bit-equal to it;
+ 18. [deepergcn], after [gat] (``--deepergcn`` runs it alone): DeeperGCN's
+     softmax aggregation kernels at k = 128 on synth-arxiv with self
+     loops (GAT's layout) against their plain version in float64 (rtol
+     1e-4, atol 1e-5 of the largest element), two calls bit-equal, the
+     kernels' device ms beside the plain version's, ``gat_attention``'s
+     at (H, F) = (128, 1) on the same function and the bound; a
+     10-iteration ``DeeperGCN.fit`` at 28 layers and hidden 128, eager
+     (84 aggregation calls an iteration and 28 for the final
+     evaluation, every one through the kernels) and captured, bit-equal
+     to it, with its kernel records and peak memory; and the nodes and
+     kernels of the graph that a captured v4 and GAT fit capture, equal
+     to those before ``fit_gcn`` took buffers
+     (``PARENT_CAPTURED``, or a tree given as ``PARENT_ROOT``).
 
 Then one JSON line of kernel rows (``{"kernels": [...]}``: K1 at the main
 path's shape, K2 (each with ``captured_launches``, the captured fit's
@@ -2942,6 +2956,339 @@ def gat_phase(dev, data):
     return rows
 
 
+DEEPER_RTOL, DEEPER_ATOL_OF_MAX = 1e-4, 1e-5
+DEEPER_K, DEEPER_T, DEEPER_LAYERS = 128, 0.1, 28
+DEEPER_ITERS = 10
+DEEPERGCN = "--deepergcn"
+# the nodes, and the kernel nodes among them, of the graph that a captured
+# v4 fit (GCN hidden 32, dropout 0.5, mode val) and a GAT fit (the paper's
+# widths, mode val) capture on the smoke's synth-arxiv, recorded at the
+# commit before fit_gcn took buffers (``captured_counts_of``); a model that
+# passes no buffers must capture the same
+PARENT_CAPTURED = {"v4": {"nodes": 103, "kernels": 101},
+                   "gat": {"nodes": 270, "kernels": 263}}
+
+
+def graph_nodes(fit):
+    """{"nodes": n, "kernels": k}: the nodes of the CUDA graph that
+    ``fit()`` captures (``train/capture.py``), and how many of them are
+    kernels, read from the graph's own description
+    (``cudaGraphDebugDotPrint`` through ``CUDAGraph.debug_dump``). The
+    capture is ``CapturedLoop._capture``'s, with ``keep_graph`` on so that
+    the graph outlives its instantiation (at the first replay)."""
+    import re
+    import tempfile
+
+    import torch
+
+    from gcn_tpu_torch.train import capture
+
+    graphs, real = [], capture.CapturedLoop._capture
+
+    def keep(self):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=torch.cuda.current_stream()):
+            self.body()
+        self.graph = graph
+        graphs.append(graph)
+
+    capture.CapturedLoop._capture = keep
+    try:
+        fit()
+    finally:
+        capture.CapturedLoop._capture = real
+    if len(graphs) != 1:
+        fail(f"the fit captured {len(graphs)} graphs (expected 1)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graphs[0].debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    # a node's definition: its quoted name, then its attributes up to "];
+    defs = re.findall(r'(?<!-> )"(graph_\d+_node_\d+)"\s*\[(.*?)\];', dot,
+                      re.S)
+    if not defs:
+        fail("the captured graph's description names no node")
+    return {"nodes": len({name for name, _ in defs}),
+            "kernels": sum(1 for _, attrs in defs if "KERNEL" in attrs)}
+
+
+def captured_kernel_counts():
+    """{"v4": ..., "gat": ...}: ``graph_nodes`` of a 4-iteration captured
+    v4 fit (hidden 32, dropout 0.5, mode val) and GAT fit (the paper's
+    widths, mode val) on the smoke's synth-arxiv, with the package that
+    ``gcn_tpu_torch`` resolves to."""
+    import torch
+
+    from gcn_tpu_torch.data import get_dataset
+    from gcn_tpu_torch.models import GAT as GatModel
+    from gcn_tpu_torch.models import GCN
+
+    dev = torch.device("cuda")
+    data = get_dataset("synth-arxiv", seed=SEED)
+    nfeat, ncls = data.num_features, data.num_classes
+
+    def fit(model):
+        return lambda: model.fit(data.features, data.adj, data.labels,
+                                 data.idx_train, data.idx_val,
+                                 train_iters=4, mode="val")
+
+    return {"v4": graph_nodes(fit(GCN(nfeat, 32, ncls, variant="v4",
+                                      seed=SEED, device=dev))),
+            "gat": graph_nodes(fit(GatModel(nfeat, ncls, seed=SEED,
+                                            device=dev)))}
+
+
+def captured_counts_of(root):
+    """``captured_kernel_counts`` with the package of the tree at ``root``
+    (such as a parent commit's, unpacked with git archive), in a child
+    process started there, which loads this file by its path."""
+    code = ("import importlib.util, json, os, torch\n"
+            "spec = importlib.util.spec_from_file_location('smoke', "
+            f"{os.path.abspath(__file__)!r})\n"
+            "smoke = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(smoke)\n"
+            "import gcn_tpu_torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "print(json.dumps({'package': os.path.dirname(gcn_tpu_torch"
+            ".__file__), **smoke.captured_kernel_counts()}))\n")
+    child = subprocess.run([sys.executable, "-c", code], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+    print(child.stderr[-2000:], end="", flush=True)
+    if child.returncode != 0:
+        fail(f"the captured counts of {root} exited {child.returncode}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    if not out["package"].startswith(os.path.abspath(root)):
+        fail(f"the child at {root} imported {out['package']}")
+    print(f"  {root}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def deepergcn_phase(dev, data, parent_root=None):
+    """[deepergcn]: DeeperGCN's softmax aggregation kernels
+    (``ops/csrc/softmax_agg.cu``) at the cell's shape: synth-arxiv with
+    self loops, laid out by ``DeeperGCN.build_layout`` (GAT's layout), k =
+    128, t = 0.1. On seeded m (relu-like, positive) and da: the forward
+    and dm against the plain version (``_softmax_aggregate_plain``) in
+    float64, at rtol 1e-4 and atol 1e-5 of the largest element (float32
+    sums over rows of hundreds of edges taken in another order, an exp an
+    element and edge); two calls bit-equal, forward and backward; the
+    kernels' device ms forward (the evaluation's, no logsumexp kept),
+    forward keeping it, and forward with backward, beside the plain
+    version's in float32, ``gat_attention`` at (H, F) = (128, 1) computing
+    the same function (scores el = t m detached, er = 0, slope 1) and the
+    bound of ``benchmark/deepergcn_work.py``'s bytes and flops, and one
+    forward with backward under torch.profiler, read by the benchmark's
+    ``trace.read``, for each kernel's own ms. Then a ``DeeperGCN.fit`` at
+    the published size (28 layers, hidden 128), 10 iterations, eager, its
+    counters zeroed just before it (3 x 28 aggregation calls an iteration
+    and 28 for the final evaluation, every one through the kernels), and
+    the same fit captured, bit-equal to it (parameters, running
+    statistics, output), with its kernel records. Last, the captured
+    iteration of a v4 fit and of a GAT fit holds as many graph nodes and
+    kernels as at the commit before ``fit_gcn`` took buffers
+    (``PARENT_CAPTURED``, or a tree at ``parent_root`` counted in a child
+    process where one is given: ``--deepergcn PARENT_ROOT``). Returns the
+    kernels line's rows."""
+    import torch
+
+    from benchmark import deepergcn_work, trace
+    from gcn_tpu_torch.models import DeeperGCN
+    from gcn_tpu_torch.ops import gat_attn, softmax_agg
+    from gcn_tpu_torch.utils.chain_timing import device_ms
+    from gcn_tpu_torch.utils.timers import counters
+
+    t0 = time.time()
+    nfeat, ncls = data.num_features, data.num_classes
+    lay = DeeperGCN(nfeat, ncls, device=dev).build_layout(data.adj)
+    torch.cuda.synchronize()
+    print(f"[deepergcn] synth-arxiv with self loops: n={lay.n} "
+          f"edges={lay.nnz}, {lay.long_rows} rows of more than 256 edges, "
+          f"longest {int(lay.row_len.max())} ({time.time() - t0:.1f}s)",
+          flush=True)
+    k, t = DEEPER_K, DEEPER_T
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m = (torch.relu(torch.randn((lay.n, k), generator=gen, device=dev))
+         + 1e-7).requires_grad_(True)
+    da = torch.randn((lay.n, k), generator=gen, device=dev)
+
+    def kernel():
+        return softmax_agg.softmax_aggregate(lay, m, t)
+
+    def both(fn):
+        out = fn()
+        return [out.detach(), *torch.autograd.grad(out, m, da)]
+
+    got = both(kernel)
+    m64 = m.detach().double().requires_grad_(True)
+    out64 = softmax_agg._softmax_aggregate_plain(lay, m64, t)
+    want = [out64.detach(), *torch.autograd.grad(out64, m64, da.double())]
+    del out64, m64
+    errs = [compare(f"softmax aggregation k={k} {name}", a, b,
+                    rtol=DEEPER_RTOL,
+                    atol=DEEPER_ATOL_OF_MAX * b.abs().max().item())
+            for name, a, b in zip(("out", "dm"), got, want)]
+    del want
+    torch.cuda.empty_cache()
+    check_repeat(f"softmax aggregation k={k} forward", kernel)
+    check_repeat(f"softmax aggregation k={k} backward",
+                 lambda: torch.cat([x.flatten() for x in both(kernel)]))
+
+    # the same function through GAT's attention: 128 heads of width 1
+    wh = m.detach().view(lay.n, k, 1)
+    el = (t * m).detach()
+    er = torch.zeros_like(el)
+    wh_leaf = wh.clone().requires_grad_(True)
+
+    def attention():
+        return gat_attn.gat_attention(lay, wh_leaf, el, er, 1.0)
+
+    same = attention().view(lay.n, k)
+    compare(f"gat_attention at (128, 1) against the kernels", same.detach(),
+            got[0].double(), rtol=DEEPER_RTOL,
+            atol=DEEPER_ATOL_OF_MAX * got[0].abs().max().item())
+
+    def plain():
+        return softmax_agg._softmax_aggregate_plain(lay, m, t)
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                fn()
+        return call
+
+    def keeping_lse():
+        return softmax_agg._forward(lay, m.detach(), t, keep_lse=True)
+
+    def attention_both():
+        out = attention()
+        return torch.autograd.grad(out, wh_leaf, da.view(lay.n, k, 1))
+
+    ms = {"kernel_eval": device_ms(no_grad(kernel), 20),
+          "kernel_fwd": device_ms(keeping_lse, 20),
+          "kernel_fwd_bwd": device_ms(lambda: both(kernel), 20),
+          "gat_fwd": device_ms(no_grad(attention), 20),
+          "gat_fwd_bwd": device_ms(attention_both, 20)}
+    for name, call in (("plain_fwd", no_grad(plain)),
+                       ("plain_fwd_bwd", lambda: both(plain))):
+        try:
+            ms[name] = device_ms(call, 5)
+        except torch.cuda.OutOfMemoryError:
+            ms[name] = None
+        torch.cuda.empty_cache()
+    work = {call: deepergcn_work.aggregation_work(lay.n, lay.nnz, k, call)
+            for call in deepergcn_work.CALLS}
+    b_eval, by = least_ms(*work["eval"])
+    b_fwd, _ = least_ms(*work["forward"])
+    b_bwd, by_bwd = least_ms(*work["backward"])
+    by_kernel = {name: sec * 1e3 for name, sec in
+                 trace.profile(lambda: both(kernel))["device_ops"]}
+    print(f"  k={k}: kernels eval fwd {ms['kernel_eval']:.4f} ms, fwd "
+          f"{ms['kernel_fwd']:.4f} ms, fwd + bwd "
+          f"{ms['kernel_fwd_bwd']:.4f} ms | gat_attention (128, 1) "
+          f"{ms['gat_fwd']:.4f} / {ms['gat_fwd_bwd']:.4f} ms | plain (f32) "
+          f"{ms['plain_fwd']} / {ms['plain_fwd_bwd']} ms | bound "
+          f"{b_eval:.5f} / {b_fwd:.5f} / {b_fwd + b_bwd:.5f} ms (by {by}, "
+          f"{by_bwd}) | {100 * b_eval / ms['kernel_eval']:.1f}% / "
+          f"{100 * b_fwd / ms['kernel_fwd']:.1f}% / "
+          f"{100 * (b_fwd + b_bwd) / ms['kernel_fwd_bwd']:.1f}% of it",
+          flush=True)
+    print(f"  k={k} one forward with backward by device op, ms: "
+          f"{json.dumps(by_kernel)}", flush=True)
+    row = {
+        "name": "softmax_agg",
+        "route": "cuda",
+        "source": "gcn_tpu_torch/ops/csrc/softmax_agg.cu",
+        "replaces": "none: gcn_tpu has no DeeperGCN",
+        "use": f"synth-arxiv with self loops ({lay.nnz} edges), k = {k}, "
+               f"t = {t}: evaluation forward; forward; forward + backward",
+        "launches": None,
+        "max_abs_err": max(errs),
+        "ms": [ms["kernel_eval"], ms["kernel_fwd"], ms["kernel_fwd_bwd"]],
+        "gat_attention_ms": [ms["gat_fwd"], ms["gat_fwd_bwd"]],
+        "plain_ms": [ms["plain_fwd"], ms["plain_fwd_bwd"]],
+        "bound_ms": [b_eval, b_fwd, b_fwd + b_bwd],
+        "bound_by": by,
+        "kernels_ms": by_kernel,
+    }
+    del m, da, got, wh, el, er, wh_leaf, same
+    torch.cuda.empty_cache()
+
+    print(f"[deepergcn] DeeperGCN.fit at {DEEPER_LAYERS} layers, hidden "
+          f"{k}, {DEEPER_ITERS} iterations, mode val: eager, then "
+          f"captured", flush=True)
+    fits, records = {}, None
+    for jit_loop in (False, True):
+        counters.clear()
+        t1 = time.time()
+        model = DeeperGCN(nfeat, ncls, num_layers=DEEPER_LAYERS, hidden=k,
+                          t=t, seed=SEED, device=dev)
+
+        def fit():
+            model.fit(data.features, data.adj, data.labels, data.idx_train,
+                      data.idx_val, train_iters=DEEPER_ITERS, mode="val",
+                      jit_loop=jit_loop)
+            torch.cuda.synchronize()
+
+        if jit_loop:
+            torch.cuda.reset_peak_memory_stats(dev)
+            _, records = kernel_records(fit, "softmax_agg")
+            peak = torch.cuda.max_memory_allocated(dev)
+        else:
+            fit()
+        fits[jit_loop] = model
+        calls = counters["softmax_agg"]
+        launches = counters[f"softmax_agg_k{k}"]
+        print(f"  {'captured' if jit_loop else 'eager'}: {calls} "
+              f"aggregation host calls, {launches} through the kernels "
+              f"({time.time() - t1:.1f}s)", flush=True)
+        if not jit_loop:
+            want_calls = 3 * DEEPER_LAYERS * DEEPER_ITERS + DEEPER_LAYERS
+            if calls != want_calls or launches != calls:
+                fail(f"DeeperGCN.fit made {calls} aggregation calls "
+                     f"(expected {want_calls}), {launches} on the kernels")
+            row["launches"] = launches
+    eager, cap = fits[False], fits[True]
+    losses = [h["loss_train"] for h in eager.history]
+    same = ([h["loss_train"] for h in cap.history] == losses
+            and torch.equal(cap.output, eager.output)
+            and all(torch.equal(getattr(cap, tree)[name][j], x)
+                    for tree in ("params", "buffers")
+                    for name, layer in getattr(eager, tree).items()
+                    for j, x in layer.items()))
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}; captured bit-equal "
+          f"to eager -> {'ok' if same else 'MISMATCH'}; median step "
+          f"{cap.timers('step').d.median_ms:.3f} ms captured, "
+          f"{eager.timers('step').d.median_ms:.3f} ms eager; "
+          f"{records} softmax_agg kernel records captured (expected "
+          f"{3 * DEEPER_LAYERS * DEEPER_ITERS + DEEPER_LAYERS}); peak "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    if not same:
+        fail("the captured DeeperGCN fit differs from the eager one")
+    if not losses[-1] < losses[0] or not torch.isfinite(eager.output).all():
+        fail(f"DeeperGCN.fit: the loss did not fall or the output is not "
+             f"finite ({losses[0]} -> {losses[-1]})")
+    row["captured_kernel_records"] = records
+    del fits, eager, cap
+    torch.cuda.empty_cache()
+
+    counts = captured_kernel_counts()
+    want = PARENT_CAPTURED
+    if parent_root is not None:
+        measured = captured_counts_of(parent_root)
+        want = {key: measured[key] for key in counts}
+    ok = all(want[key] == counts[key] for key in counts)
+    print(f"[deepergcn] captured iteration's graph nodes: "
+          f"{json.dumps(counts)}, before buffers {json.dumps(want)} -> "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("a model without buffers captures another graph than "
+             "before fit_gcn took buffers")
+    return [row]
+
+
 def index_add_fold(out_virt, adj):
     """The hub fold as the port had it before its fixed order: an
     ``index_add_`` over ``virt_map`` (atomic adds on the card), the
@@ -3192,6 +3539,13 @@ def gat_rows(dev):
     return gat_phase(dev, get_dataset("synth-arxiv", seed=SEED))
 
 
+def deepergcn_rows(dev, parent_root=None):
+    from gcn_tpu_torch.data import get_dataset
+
+    return deepergcn_phase(dev, get_dataset("synth-arxiv", seed=SEED),
+                           parent_root)
+
+
 def phase_main(phase):
     """``--gat`` or ``--hgnn``: the card's line, that phase alone (its
     kernels built at first use), its rows of the kernels line, the card's
@@ -3226,6 +3580,8 @@ def main():
         return 0
     if sys.argv[1:] == [GAT]:
         return phase_main(gat_rows)
+    if sys.argv[1:2] == [DEEPERGCN] and len(sys.argv) <= 3:
+        return phase_main(lambda dev: deepergcn_rows(dev, *sys.argv[2:]))
     if sys.argv[1:] == [HGNN_ONLY]:
         return phase_main(hgnn_phases)
     import numpy as np
@@ -3686,6 +4042,7 @@ def main():
     wide_rows = wide_kpad_phase(dev, g, data)
     coo_row = ladder_phase(dev, data, p0)
     gat_kernel_rows = gat_phase(dev, data)
+    gat_kernel_rows += deepergcn_phase(dev, data)
 
     # ---- 9. where a v6 step's time goes ----------------------------------
     profile_steps(model, data.idx_train, 10)

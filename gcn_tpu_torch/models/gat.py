@@ -125,6 +125,16 @@ def gat_forward(params: dict, x: torch.Tensor, layout: GatLayout, *,
     return torch.log_softmax(h, dim=1)
 
 
+def self_loop_layout(adj, device) -> GatLayout:
+    """``gat_layout`` of ``adj``'s pattern with self loops (``N(i) +
+    {i}``), through a ``CooAdj`` on ``device``; edge weights are not
+    read. GAT's attention and DeeperGCN's aggregation walk it."""
+    g = _as_csr(adj)
+    g = CSRGraph(g.indptr, g.indices, np.ones(g.nnz, np.float32),
+                 g.shape).with_self_loops()
+    return gat_layout(device_adjacency(g, "coo", device=device))
+
+
 class GAT:
     def __init__(self, nfeat: int, nclass: int,
                  heads: Sequence[int] = (4, 4, 6),
@@ -158,10 +168,7 @@ class GAT:
         """The attention's layout of ``adj``'s pattern with self loops
         (``N(i) + {i}``), on the model's device; edge weights are not
         read."""
-        g = _as_csr(adj)
-        g = CSRGraph(g.indptr, g.indices, np.ones(g.nnz, np.float32),
-                     g.shape).with_self_loops()
-        return gat_layout(device_adjacency(g, "coo", device=self.device))
+        return self_loop_layout(adj, self.device)
 
     def forward(self, params: dict, x: torch.Tensor,
                 layout: GatLayout) -> torch.Tensor:

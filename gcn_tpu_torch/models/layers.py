@@ -4,7 +4,9 @@ Numerics of the pygcn reference's ``GraphConvolution`` (gcn1.py:14-62), as
 in ``gcn_tpu.models.layers``: weights (in, out), W and b drawn from
 U(-1/sqrt(out), 1/sqrt(out)), output ``A (X W) + b``; the order ``(A X) W``
 is the reference's ``GraphConvolution2`` (gcn3.py:87-92). ``gat_conv`` is
-a GAT layer's attention heads (``models/gat.py``), which gcn_tpu lacks.
+a GAT layer's attention heads (``models/gat.py``), ``gen_conv`` and
+``batch_norm`` the layers of DeeperGCN (``models/deepergcn.py``); gcn_tpu
+lacks all three.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ from typing import Dict
 import torch
 
 from gcn_tpu_torch.utils.device import resolve_device
+
+# DeeperGCN's constants, as its ogbn-arxiv run sets them: GENConv's message
+# epsilon, and BatchNorm1d's momentum and epsilon
+MSG_EPS = 1e-7
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
 
 
 def init_linear(generator: torch.Generator, n_in: int, n_out: int,
@@ -102,3 +110,34 @@ def gat_conv(params: Dict[str, torch.Tensor], att: Dict[str, torch.Tensor],
     scores = torch.matmul(x, wa) + att["b"]
     return gat_attn.gat_attention(layout, wh, scores[:, :heads],
                                   scores[:, heads:], negative_slope)
+
+
+def gen_conv(params: Dict[str, torch.Tensor], layout, h: torch.Tensor,
+             t: float, eps: float = MSG_EPS) -> torch.Tensor:
+    """DeeperGCN's GENConv (arXiv:2006.07739, eq. 4, as
+    ``gcn_lib/sparse/torch_vertex.py::GENConv`` runs it for ogbn-arxiv):
+    messages ``relu(h_u) + eps``, their per-channel softmax aggregation
+    over ``N(v)`` at temperature ``t`` with the weights held constant
+    (``ops.softmax_agg.softmax_aggregate`` over ``layout``, a ``GatLayout``
+    of A + I), added to ``h_v``, then the one-layer MLP ``(h + a) W + b``."""
+    from gcn_tpu_torch.ops.softmax_agg import softmax_aggregate
+
+    a = softmax_aggregate(layout, torch.relu(h) + eps, t)
+    return torch.addmm(params["b"], h + a, params["w"])
+
+
+def batch_norm(params: Dict[str, torch.Tensor],
+               buffers: Dict[str, torch.Tensor], h: torch.Tensor,
+               train: bool) -> torch.Tensor:
+    """``BatchNorm1d`` over the rows of ``h`` (n, C), functional: ``params``
+    holds the affine scale as ``w`` (1, C) and shift as ``b`` (C,),
+    ``buffers`` the running ``mean`` and ``var`` (C,). Training normalizes
+    by the batch's statistics (the biased variance) and moves the running
+    ones toward them in place (the unbiased variance, by ``BN_MOMENTUM``);
+    evaluation normalizes by the running ones; ``BN_EPS`` is added to the
+    variance. torch's own batch norm, whose CUDA kernels reduce in a fixed
+    order and read nothing back to the host, so a CUDA graph can capture
+    it and two calls agree bit for bit."""
+    return torch.nn.functional.batch_norm(
+        h, buffers["mean"], buffers["var"], params["w"].view(-1),
+        params["b"], training=train, momentum=BN_MOMENTUM, eps=BN_EPS)

@@ -7,10 +7,11 @@ ctypes, both compiled from sources in the package into
   * CUDA kernels (``ops/csrc/*.cu``) with ``nvcc`` for ``sm_90a``;
   * host code (``reorder/csrc/reorder.cpp``) with ``g++``.
 
-A library's file name carries a digest of its sources and flags, so a stale
-binary can never be loaded after a source edit, and concurrent builders
-(pytest workers) each write a private temporary file and rename it into
-place. A failed build raises ``BuildError``: nothing falls back.
+A library's file name carries a digest of its sources and flags (the headers
+it includes are listed among its sources, hashed but not compiled), so a
+stale binary can never be loaded after a source edit, and concurrent
+builders (pytest workers) each write a private temporary file and rename it
+into place. A failed build raises ``BuildError``: nothing falls back.
 """
 
 from __future__ import annotations
@@ -31,11 +32,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # pragmas (the row loop of gcn_csr_permute) give the same result serially
 GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared"]
 
-# library name -> sources (relative to the package) of each CUDA library
+# library name -> sources (relative to the package) of each CUDA library,
+# with the headers it includes
 CUDA_LIBRARIES = {"gcnellspmm": ["ops/csrc/ell_spmm.cu"],
                   "gcnpanelspmm": ["ops/csrc/panel_spmm.cu"],
                   "gcncoospmm": ["ops/csrc/coo_spmm.cu"],
-                  "gcngatattn": ["ops/csrc/gat_attn.cu"]}
+                  "gcngatattn": ["ops/csrc/gat_attn.cu",
+                                 "ops/csrc/row_walk.cuh"],
+                  "gcnsoftmaxagg": ["ops/csrc/softmax_agg.cu",
+                                    "ops/csrc/row_walk.cuh"]}
+_HEADERS = (".cuh", ".h", ".hpp")
 
 
 class BuildError(RuntimeError):
@@ -87,7 +93,8 @@ def build_libraries(specs: Dict[str, Sequence[str]], compiler: str
             result[name] = (out, "")
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = _command(compiler, [os.path.join(_PKG, s) for s in sources])
+        cmd = _command(compiler, [os.path.join(_PKG, s) for s in sources
+                                  if not s.endswith(_HEADERS)])
         try:
             proc = subprocess.Popen(cmd + ["-o", tmp],
                                     stdout=subprocess.PIPE,

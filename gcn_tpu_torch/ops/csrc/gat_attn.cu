@@ -22,7 +22,8 @@
 // rows, which gather the same source rows, run together while those rows
 // are in L2, and a warp's groups walk rows of near equal length. The
 // order decides only which group walks a row and when, never the order
-// of a row's sums. No padding edge lies in any run.
+// of a row's sums. No padding edge lies in any run. The walk's helpers
+// (item_of, chunk_of, shape_of, walk_blocks) are row_walk.cuh's.
 //
 //   s_ij = er[i,h] + el[j,h];  e_ij = LeakyReLU(s_ij)
 //   lse_i = log sum_j exp(e_ij);  alpha_ij = exp(e_ij - lse_i)
@@ -71,18 +72,14 @@
 
 #include <cstdint>
 
+#include "row_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps a block
-constexpr int kWarp = 32;
 constexpr int kUnroll = 2;     // edges whose gathers are in flight at once
 
 __device__ __forceinline__ float leaky(float s, float slope) {
   return s > 0.f ? s : s * slope;
-}
-
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // acc = acc * a + b * x
@@ -106,43 +103,6 @@ __device__ __forceinline__ float group_sum(float v, int G) {
   for (int off = G / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(mask, v, off, G);
   return v;
-}
-
-// Which (row, head) a group owns: blocks [0, n_long * H) take one long
-// (row, head) each, whole; the rest hold kThreads / G groups of a short
-// (row, head) each. Returns false for a group past the last item.
-struct Item {
-  int64_t row;
-  int head;
-  bool whole_block;
-};
-
-__device__ __forceinline__ bool item_of(const int64_t* order, int64_t n_long,
-                                        int64_t n, int H, int G, Item& it) {
-  const int64_t b = blockIdx.x;
-  if (b < n_long * H) {
-    it.row = order[b / H];
-    it.head = static_cast<int>(b % H);
-    it.whole_block = true;
-    return true;
-  }
-  const int64_t k = n_long * H + (b - n_long * H) * (kThreads / G) +
-                    threadIdx.x / G;
-  if (k >= n * H) return false;
-  it.row = order[k / H];
-  it.head = static_cast<int>(k % H);
-  it.whole_block = false;
-  return true;
-}
-
-// the part of [beg, end) that group g of `groups` walks: contiguous chunks
-__device__ __forceinline__ void chunk_of(int64_t& beg, int64_t& end, int g,
-                                         int groups) {
-  const int64_t len = end - beg;
-  const int64_t c = (len + groups - 1) / groups;
-  const int64_t b = beg + min(len, c * g);
-  end = beg + min(len, c * (g + 1));
-  beg = b;
 }
 
 template <int V>
@@ -377,25 +337,6 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) out[k] = part;
 }
 
-// float4s a lane (V) and lanes a group (G) for F4 float4s a head; false
-// for a width the kernels do not take
-bool shape_of(int F4, int& V, int& G) {
-  if (F4 <= 0 || F4 > 8 * kWarp) return false;
-  V = F4 <= 2 * kWarp ? 2 : 8;
-  G = 1;
-  while (G * V < F4) G *= 2;
-  return true;
-}
-
-bool aligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-int64_t walk_blocks(int64_t n, int64_t n_long, int H, int G) {
-  const int64_t per_block = kThreads / G;
-  return n_long * H + ((n - n_long) * H + per_block - 1) / per_block;
-}
-
 }  // namespace
 
 // out (n x H x width) and lse (n x H): the forward. Returns the launch's
@@ -408,7 +349,7 @@ extern "C" int gcn_gat_attn_fwd(const float* wh, const float* el,
                                 float slope, void* stream) {
   int V, G;
   if (n <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  if (width % 4 != 0 || !shape_of(width / 4, V, G) || n_long < 0 ||
+  if (width % 4 != 0 || !shape_of(width / 4, 2, 8, V, G) || n_long < 0 ||
       n_long > n || !aligned(wh) || !aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = walk_blocks(n, n_long, H, G);
@@ -441,7 +382,7 @@ extern "C" int gcn_gat_attn_bwd(const float* wh, const float* el,
                                 void* stream) {
   int V, G;
   if (n <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  if (width % 4 != 0 || !shape_of(width / 4, V, G) || n_long < 0 ||
+  if (width % 4 != 0 || !shape_of(width / 4, 2, 8, V, G) || n_long < 0 ||
       n_long > n || !aligned(wh) || !aligned(dout) || !aligned(dwh))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = walk_blocks(n, n_long, H, G);
@@ -470,8 +411,8 @@ extern "C" int gcn_gat_attn_rows(const float* a, const float* b,
                                  int32_t mode, void* stream) {
   int V, G;
   if (n <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  if (width % 4 != 0 || !shape_of(width / 4, V, G) || (mode != 0 && mode != 1)
-      || (mode == 0 && (!aligned(a) || !aligned(b))) ||
+  if (width % 4 != 0 || !shape_of(width / 4, 2, 8, V, G) ||
+      (mode != 0 && mode != 1) || (mode == 0 && (!aligned(a) || !aligned(b))) ||
       (mode == 1 && row_ptr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per_block = mode == 1 ? kThreads : kThreads / G;

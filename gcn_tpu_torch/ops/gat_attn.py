@@ -221,17 +221,18 @@ def _check_operands(layout, wh, el, er):
 
 
 class _CountBackward(torch.autograd.Function):
-    """The identity, whose backward counts one call of ``gat_attn``: the
-    plain version's backward, which autograd runs op by op."""
+    """The identity, whose backward counts one call under the counter
+    ``name``: a plain version's backward, which autograd runs op by op."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, name):
+        ctx.name = name
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        counters["gat_attn"] += 1
-        return g
+        counters[ctx.name] += 1
+        return g, None
 
 
 class _GatAttentionKernel(torch.autograd.Function):
@@ -305,6 +306,7 @@ def gat_attention(layout: GatLayout, wh: torch.Tensor, el: torch.Tensor,
     counters["gat_attn"] += 1
     if wh.device.type == "cpu":
         return _CountBackward.apply(
-            _gat_attention_plain(layout, wh, el, er, negative_slope))
+            _gat_attention_plain(layout, wh, el, er, negative_slope),
+            "gat_attn")
     return _GatAttentionKernel.apply(wh, el, er, layout,
                                      float(negative_slope))

@@ -9,7 +9,8 @@ and pyhgnn's:
   * ``val_acc``    — pyhgnn's best-val snapshot (``train_model``): a
     strictly higher val accuracy takes it; no val loss is computed.
 
-``GCN.fit``, ``GAT.fit`` and ``HGNN.fit`` train through ``fit_gcn``. One
+``GCN.fit``, ``GAT.fit``, ``DeeperGCN.fit`` and ``HGNN.fit`` train
+through ``fit_gcn``. One
 training iteration is written once, as gcn_tpu's ``_fit_scanned`` writes
 it (gcn_tpu/train/loop.py:187-316): a device-side ``body`` whose best-val
 snapshot and patience counter are selects into preallocated device
@@ -34,6 +35,15 @@ Each fit is a ``fit`` span with the children ``fit.prepare`` (the copy of
 the parameters, the optimizer, the loop's buffers), ``fit.loop`` (the
 ``fit_scan`` region) and ``fit.finish`` (the host reads and the final
 evaluation); see ``utils/timers.py``.
+
+A model with state beside its parameters that the training forward
+writes in place and the evaluation forward reads (DeeperGCN's batch-norm
+running statistics) passes it as ``buffers``: a stopped iteration leaves
+it as it was, each best-val snapshot copies it beside the parameters, the
+final evaluation runs under the snapshot's values (copied in, so that a
+captured graph that reads the buffers stays valid), and
+``TrainResult.buffers`` / ``final_buffers`` return it. Without buffers
+the iteration runs the same kernels as before they existed.
 
 A run resumes from a checkpoint (``utils.checkpoint``) with ``opt_state``,
 the Adam state it saved, and ``start_iter``, the updates already done;
@@ -68,6 +78,8 @@ class TrainResult:
     opt_state: dict = None     # Adam state after the last update
     rng_state: torch.Tensor = None  # the dropout generator's, likewise
     iter_ms: list = None       # every iteration's time, stopped ones too
+    buffers: dict = None       # the buffers of ``params``, detached
+    final_buffers: dict = None  # the buffers of the last iterate
 
 
 def fit_gcn(
@@ -90,6 +102,8 @@ def fit_gcn(
     jit_loop: bool = True,
     loss: Optional[Callable] = None,   # loss(train output, labels, idx)
     before: Optional[Callable[[int], None]] = None,
+    buffers: Optional[dict] = None,    # state forward(params, True)
+                                       # writes in place (not copied)
 ) -> TrainResult:
     """Train ``params`` (a nested dict, copied) for ``train_iters`` steps.
     ``history`` and ``best_iter`` count iterations from ``start_iter``;
@@ -101,7 +115,9 @@ def fit_gcn(
     a CUDA device, ``forward`` must be capturable (no host reads of device
     values) and draw its random numbers only from ``generator``, and
     ``make_optimizer`` must give a capturable optimizer (``adam_l2`` does
-    on the card)."""
+    on the card). ``buffers`` is a nested dict of the tensors that
+    ``forward`` reads and its training call updates in place; at the end
+    they hold the values of the returned parameters."""
     if mode == "auto":
         mode = "no_val" if idx_val is None else "val"
     if mode not in ("no_val", "val", "early_stop", "val_acc"):
@@ -123,9 +139,10 @@ def fit_gcn(
     # one iteration; the state it reads and writes is made in fit.prepare
 
     def guarded():
-        """What a stopped iteration must leave as it was: the parameters
-        and Adam's state (which exists from the first step on)."""
-        out = list(leaves)
+        """What a stopped iteration must leave as it was: the parameters,
+        the buffers and Adam's state (which exists from the first step
+        on)."""
+        out = list(leaves) + buf_leaves
         for p in leaves:
             out += [v for v in opt.state[p].values()
                     if isinstance(v, torch.Tensor)]
@@ -136,6 +153,8 @@ def fit_gcn(
         torch.where(take, value, best_value, out=best_value)
         for b, p in zip(best, leaves):
             torch.where(take, p.detach(), b, out=b)
+        for b, t in zip(best_buf, buf_leaves):
+            torch.where(take, t, b, out=b)
         torch.where(take, it, best_it, out=best_it)
 
     def body():
@@ -180,6 +199,7 @@ def fit_gcn(
                              for k, t in layer.items()}
                       for name, layer in params.items()}
             leaves = [t for _, t in named_leaves(params)]
+            buf_leaves = [t for _, t in named_leaves(buffers or {})]
             opt = make_optimizer(leaves)
             if opt_state:
                 opt.load_state_dict({**opt.state_dict(), "state": opt_state})
@@ -198,6 +218,7 @@ def fit_gcn(
                 torch.full((train_iters,), float("nan"), device=dev)
                 for _ in range(3))
             best = [t.detach().clone() for t in leaves]
+            best_buf = [t.detach().clone() for t in buf_leaves]
             best_loss = scalar(float("inf"))
             best_acc = scalar(-float("inf"))
             best_it = torch.full((1,), -1, dtype=torch.int64, device=dev)
@@ -238,11 +259,17 @@ def fit_gcn(
                       f"best val loss {float(best_loss):.4f} ===")
 
             final = snapshot(params)
+            final_buffers = snapshot(buffers) if buffers else None
             best_iter = start_iter + int(best_it)
             if mode == "no_val" or best_iter < start_iter:
                 best_params, best_iter = final, start_iter + n - 1
+                best_buffers = final_buffers
             else:
                 best_params = tree_like(params, best)
+                best_buffers = tree_like(buffers, best_buf) if buffers \
+                    else None
+                for t, b in zip(buf_leaves, best_buf):
+                    t.copy_(b)
             return TrainResult(
                 params=best_params, log_probs=eval_forward(best_params),
                 timers=timers, history=history, best_iter=best_iter,
@@ -250,4 +277,5 @@ def fit_gcn(
                 opt_state=opt.state_dict()["state"],
                 rng_state=(generator.get_state() if generator is not None
                            else None),
-                iter_ms=iter_ms)
+                iter_ms=iter_ms, buffers=best_buffers,
+                final_buffers=final_buffers)
